@@ -1,9 +1,10 @@
 # Top-level developer / CI entry points.
 #
-# The test suite is hermetic on CPU: tests/conftest.py forces the CPU
-# backend with 8 virtual devices (XLA_FLAGS), so `make ci` needs no TPU —
-# the multi-chip shard_map ring path runs on the virtual mesh
-# (SURVEY.md §4 "Implication for the rebuild").
+# The test suite is hermetic on CPU: tests/conftest.py selects the CPU
+# backend with 8 virtual devices (XLA_FLAGS), so `make ci` needs no GPU —
+# the multi-device shard_map ring path runs on the virtual mesh
+# (SURVEY.md §4 "Implication for the rebuild").  On the GPU,
+# `python chip_smoke.py` drives the main path once at real sizes.
 
 PYTHON ?= python
 

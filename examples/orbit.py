@@ -1,14 +1,13 @@
 #!/usr/bin/env python
-"""Long-horizon orbital mechanics: the symplectic + resident showcase.
+"""Long-horizon orbital mechanics: the symplectic integrator showcase.
 
 The reference's integrator (half-kick + drift, ``kernel.cu:116-124``)
 is fine for its interactive demo but drifts secularly on orbits.  This
 example runs a two-body Kepler system plus a small Plummer cluster for
 100k steps under each integrator and prints the measured energy drift —
-the 4th-order Yoshida composition holds orbits for millions of steps,
-and at this N the whole run executes in VMEM-resident multi-step chunks
-(ops/resident.py: one device program per chunk, zero HBM state traffic
-between steps).
+the 4th-order Yoshida composition holds orbits for millions of steps.
+Each chunk of steps runs as one compiled program (``ops/step.py``), on
+the tiled force kernel where ``impl=auto`` picks it (``ops/forces.py``).
 
 Run:  python examples/orbit.py [N] [STEPS]
 """
@@ -50,8 +49,7 @@ def main():
         drift = abs(e1 - e0) / abs(e0)
         rate = n * n * steps / wall / 1e9
         print(f"{integrator:>10}: |dE/E| = {drift:.3e} over {steps} steps "
-              f"({wall:.1f} s, {rate:.1f} GInter/s, "
-              f"resident={sim._resident})")
+              f"({wall:.1f} s, {rate:.1f} GInter/s, impl={sim.impl})")
 
 
 if __name__ == "__main__":

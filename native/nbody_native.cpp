@@ -4,7 +4,7 @@
 //    reference's validation.cpp CPU_compute / bodyInteractions_CPU
 //    (validation.cpp:9-52): an independent native implementation of the
 //    softened all-pairs force law and the fused half-kick+drift update,
-//    used for differential testing of the TPU paths. Float and double
+//    used for differential testing of the device paths. Float and double
 //    variants (the reference is float-only; double is the precision-upgrade
 //    twin of the NumPy oracle).
 //

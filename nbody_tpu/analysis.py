@@ -85,7 +85,7 @@ def pair_correlation(pos: np.ndarray, n_bins: int = 64,
     ``chunk * N`` float64s (distances come from the norm expansion
     ``|a|^2 + |b|^2 - 2 a.b`` — exact enough in f64 at domain scale, and
     8x leaner than materializing the (chunk, N, 3) difference tensor,
-    which was ~3 GB at N=65536; ADVICE r2).
+    which was ~3 GB at N=65536).
 
     Returns ``(r_centers, g)``, each (n_bins,).
     """

@@ -1,7 +1,7 @@
 """Energy / momentum diagnostics.
 
 The reference has no conservation accounting at all (SURVEY.md section 5); the
-rebuild adds it because the drift gate (BASELINE.md) is defined in terms of
+rebuild adds it because the drift gate (`nbody validate`) is defined in terms of
 total energy over 1k steps.  The pair potential consistent with the softened
 force ``a_i += m_j r_ij / (|r|^2 + eps2)^{3/2}`` (``kernel.cu:9-29``) is the
 Plummer-softened potential ``phi_ij = -m_i m_j / sqrt(|r|^2 + eps2)``.
@@ -20,7 +20,7 @@ import numpy as np
 
 
 # Past this many bodies the exact host-f64 sweep is infeasible (O(N^2)
-# on one core); energy_f64 delegates to the bounded device path and
+# on the CPU); energy_f64 delegates to the bounded device path and
 # Simulation routes mesh runs to parallel/energy.py.
 MAX_HOST_ENERGY_N = 262144
 
@@ -101,143 +101,30 @@ def _pe_rows(pos_rows, mass_rows, pos_all, mass_all, start, eps2,
 def total_energy_bounded(state, eps2: float,
                          row_chunk: "int | None" = None,
                          col_chunk: int = 2048,
-                         max_prog_pairs: float = 3e11,
-                         use_pallas: "bool | None" = None) -> float:
-    """Total energy via BOUNDED device programs (one per ``row_chunk`` of
+                         max_prog_pairs: float = 3e11) -> float:
+    """Total energy via bounded device programs (one per ``row_chunk`` of
     bodies), partials accumulated in float64 on host.
 
-    The huge-N companion of ``energy_f64``: the host-f64 path is O(N^2) on
-    one CPU core (hours past ~256k bodies), and a single device program
-    over all pairs exceeds execution-time-limited runtimes at N>=4M — the
-    same wall ``run_steps_multiprog`` solves for forces.  Pairwise math is
-    device float32 (adequate for drift diagnostics; each program's sum is
-    an fp32 tree reduction, partials then combine in f64).
+    The large-N companion of ``energy_f64``: the host-f64 path is O(N^2)
+    on the CPU (hours past ~256k bodies).  Pairwise math is device
+    float32 (adequate for drift diagnostics; each program's sum is an
+    fp32 tree reduction, partials then combine in f64).
 
     ``row_chunk=None`` sizes rows so each program evaluates at most
-    ``max_prog_pairs`` (rows x N) pairs — the per-program bound must not
-    grow with N (at a fixed row count a 16M-body program would be ~16x
-    longer than the 1M one and re-cross the execution limit).
-
-    ``use_pallas=None`` picks the VMEM-tiled pair-potential kernel
-    (``ops/pe_pallas.py``, ~4x the XLA sweep's pairs/s) on TPU and the
-    XLA path elsewhere.  The pallas path computes self-pairs (mask-free
-    kernel) and subtracts their closed-form total ``sum(m^2)/sqrt(eps2)``
-    afterwards — exact at r=0 where d2 == eps2.
-
-    ``FlatState`` inputs route to ``total_energy_bounded_flat``."""
-    import jax
-    from .state import is_flat
-    if is_flat(state):
-        return total_energy_bounded_flat(state, eps2)
+    ``max_prog_pairs`` (rows x N) pairs, which bounds the device
+    temporaries and the time of one program independently of N."""
     n = state.pos.shape[0]
     if row_chunk is None:
         row_chunk = max(1024, min(65536, int(max_prog_pairs // max(n, 1))))
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     ke = float(kinetic_energy(state.vel, state.mass))
     pe = 0.0
-    if use_pallas:
-        from ..models.state import round_up
-        from ..ops.pe_pallas import _pe_rows_padded
-        block_i, block_u = 256, 2048
-        # Pad + transpose the j-side ONCE (each op consuming the (N, 3)
-        # array costs a 42.7x tiled copy — docs/PERF.md; per-row-chunk
-        # repetition would multiply it ~N/row_chunk times).  Row chunks
-        # re-slice from THIS (3, n_pad) copy too — never from state.pos.
-        n_pad = round_up(n, block_u)
-        posT = jnp.pad(state.pos, ((0, n_pad - n), (0, 0))).T
-        mass_pad = jnp.pad(state.mass, (0, n_pad - n))
-        mass_row = mass_pad[None, :]
-        interp = jax.default_backend() != "tpu"
-        row_chunk = round_up(row_chunk, block_i)
-        for s in range(0, n, row_chunk):
-            stop = min(round_up(min(s + row_chunk, n), block_i), n_pad)
-            pos_r = posT[:, s:stop].T
-            mass_r = mass_pad[s:stop]
-            pe += float(_pe_rows_padded(pos_r, mass_r, posT, mass_row,
-                                        float(eps2), block_i, block_u,
-                                        interp))
-        # Exact f64 self-term subtraction (the kernel is mask-free; the
-        # self total is comparable to the pair sum, so the subtrahend
-        # must not carry f32 rounding of its own).
-        m64 = np.asarray(state.mass, dtype=np.float64)
-        pe -= float(np.sum(m64 * m64)) / float(eps2) ** 0.5
-    else:
-        n_pad = -(-n // col_chunk) * col_chunk
-        pos_all = jnp.pad(state.pos, ((0, n_pad - n), (0, 0)))
-        mass_all = jnp.pad(state.mass, (0, n_pad - n))
-        for s in range(0, n, row_chunk):
-            rows = slice(s, min(s + row_chunk, n))
-            # Rows come from the already-materialized padded copy, not
-            # state.pos — each op consuming the raw (N, 3) array at huge
-            # N repeats its 42.7x tiled copy (ADVICE r2).
-            pe += float(_pe_rows(pos_all[rows], mass_all[rows], pos_all,
-                                 mass_all, s, float(eps2),
-                                 col_chunk=col_chunk))
-    return ke - 0.5 * pe
-
-
-def total_energy_bounded_flat(flat, eps2: float,
-                              panel_bodies: int = 1 << 21,
-                              block_i: int = 256, block_u: int = 2048,
-                              max_prog_pairs: float = 3e11) -> float:
-    """``total_energy_bounded`` for FLAT ``(3N,)`` state — the >16M-body
-    mode, where no (N, 3) device array may exist (tiled-copy wall,
-    docs/PERF.md).  Positions are consumed panel-by-panel: each panel's
-    ``(3m,)`` slice reshapes to ``(m, 3)`` at panel size (safe — the wall
-    is only the full-length array), and the pair potential accumulates
-    over panel PAIRS through the bounded Pallas kernel, exploiting
-    symmetry (each unordered cross-panel pair evaluated once, doubled).
-    Self-pairs ride the mask-free kernel and their closed-form total
-    ``sum(m^2)/sqrt(eps2)`` is subtracted in f64, as in the regular path.
-    Partials combine in float64 on host; every program is bounded to
-    ``max_prog_pairs``."""
-    import jax
-    from .state import round_up
-    from ..ops.pe_pallas import _pe_rows_padded
-    n = flat.n
-    interp = jax.default_backend() != "tpu"
-    m = min(round_up(n, block_u), round_up(panel_bodies, block_u))
-    n_panels = -(-n // m)
-
-    def panel(a):
-        """Panel a as padded ((mp,3) pos, (mp,) mass); mp block_u-aligned."""
-        lo, hi = a * m, min((a + 1) * m, n)
-        mp = round_up(hi - lo, block_u)
-        p = flat.pos[3 * lo:3 * hi].reshape(hi - lo, 3)
-        mass = flat.mass[lo:hi]
-        return (jnp.pad(p, ((0, mp - (hi - lo)), (0, 0))),
-                jnp.pad(mass, (0, mp - (hi - lo))))
-
-    # Kinetic energy, panel-wise (f64 host combination).
-    ke = 0.0
-    for a in range(n_panels):
-        lo, hi = a * m, min((a + 1) * m, n)
-        v = flat.vel[3 * lo:3 * hi].reshape(hi - lo, 3)
-        ke += float(kinetic_energy(v, flat.mass[lo:hi]))
-
-    pe = 0.0
-    for a in range(n_panels):
-        pos_a, mass_a = panel(a)
-        posT_a, mass_row_a = pos_a.T, mass_a[None, :]
-        for b in range(a, n_panels):
-            if b == a:
-                posT_b, mass_row_b, nb = posT_a, mass_row_a, pos_a.shape[0]
-            else:
-                pos_b, mass_b = panel(b)
-                posT_b, mass_row_b, nb = (pos_b.T, mass_b[None, :],
-                                          pos_b.shape[0])
-            rows_per = round_up(
-                max(block_i, int(max_prog_pairs // max(nb, 1))), block_i)
-            part = 0.0
-            for s in range(0, pos_a.shape[0], rows_per):
-                stop = min(s + rows_per, pos_a.shape[0])
-                part += float(_pe_rows_padded(
-                    posT_a[:, s:stop].T, mass_a[s:stop], posT_b,
-                    mass_row_b, float(eps2), block_i, block_u, interp))
-            pe += part if b == a else 2.0 * part
-    m64 = np.asarray(flat.mass, dtype=np.float64)
-    pe -= float(np.sum(m64 * m64)) / float(eps2) ** 0.5
+    n_pad = -(-n // col_chunk) * col_chunk
+    pos_all = jnp.pad(state.pos, ((0, n_pad - n), (0, 0)))
+    mass_all = jnp.pad(state.mass, (0, n_pad - n))
+    for s in range(0, n, row_chunk):
+        rows = slice(s, min(s + row_chunk, n))
+        pe += float(_pe_rows(pos_all[rows], mass_all[rows], pos_all,
+                             mass_all, s, float(eps2), col_chunk=col_chunk))
     return ke - 0.5 * pe
 
 
@@ -249,14 +136,11 @@ def energy_f64(state, eps2: float,
     """Float64 host-side total energy (the drift-gate measurement).
 
     Above ``max_host_n`` bodies the exact host-f64 sweep is infeasible
-    (O(N^2) on one core); delegates to ``total_energy_bounded`` (device
+    (O(N^2) on the CPU); delegates to ``total_energy_bounded`` (device
     f32 pairs, f64 partial combination) — the precision that matters for
     the 1e-3-scale drift gates at those N.  The accuracy-class change is
-    warned ONCE per process so drift-gate callers see it (ADVICE r2).
-    ``FlatState`` inputs route to the flat bounded path (large N) or
-    convert host-side (small N) — no (N, 3) device array is created."""
-    from .state import is_flat
-    n = state.mass.shape[0] if is_flat(state) else state.pos.shape[0]
+    warned ONCE per process so drift-gate callers see it."""
+    n = state.pos.shape[0]
     if n > max_host_n:
         global _delegation_warned
         if not _delegation_warned:
@@ -267,16 +151,7 @@ def energy_f64(state, eps2: float,
                 f"float64 partial combination) — accuracy class changes "
                 f"from host-f64 to device-f32 pairs", stacklevel=2)
             _delegation_warned = True
-        if is_flat(state):
-            return total_energy_bounded_flat(state, eps2)
         return total_energy_bounded(state, eps2)
-    if is_flat(state):
-        from .state import SimState
-        state = SimState(
-            pos=np.asarray(state.pos).reshape(-1, 3),
-            vel=np.asarray(state.vel).reshape(-1, 3),
-            acc=np.asarray(state.acc).reshape(-1, 3),
-            mass=np.asarray(state.mass))
     pos = np.asarray(state.pos, dtype=np.float64)
     vel = np.asarray(state.vel, dtype=np.float64)
     mass = np.asarray(state.mass, dtype=np.float64)

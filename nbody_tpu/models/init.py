@@ -14,7 +14,7 @@ import jax
 import jax.numpy as jnp
 
 from ..config import SimConfig
-from .state import FlatState, SimState
+from .state import SimState
 
 
 def init_state(cfg: SimConfig, key: "jax.Array | None" = None,
@@ -23,12 +23,9 @@ def init_state(cfg: SimConfig, key: "jax.Array | None" = None,
 
     ``sharding``: optional ``jax.sharding.Sharding`` — when given, the
     state is GENERATED directly into that layout (``jit`` with
-    ``out_shardings``), so no single-device ``(N, 3)`` buffer ever
-    exists.  This matters at huge N on a mesh: each per-op ``(N, 3)``
-    tiled copy costs 42.7x on this stack (docs/PERF.md memory walls), so
-    mesh init must be born sharded rather than created on one chip and
-    redistributed.  Values are identical to the unsharded init (the PRNG
-    stream does not depend on layout)."""
+    ``out_shardings``), so no single-device copy of the whole state is
+    made and then redistributed.  Values are identical to the unsharded
+    init (the PRNG stream does not depend on layout)."""
     if key is None:
         key = jax.random.key(cfg.seed)
 
@@ -49,38 +46,6 @@ def init_state(cfg: SimConfig, key: "jax.Array | None" = None,
         return jax.jit(make, out_shardings=SimState(
             pos=sharding, vel=sharding, acc=sharding, mass=sharding))(key)
     return make(key)
-
-
-def init_state_flat(cfg: SimConfig,
-                    key: "jax.Array | None" = None) -> FlatState:
-    """Uniform random initial conditions as a ``FlatState`` (row-major
-    ``pos/vel/acc (3N,)``, ``mass (N,)``) — the >20M-body mode, where an
-    ``(N, 3)`` array cannot exist on device (tiled-copy wall,
-    docs/PERF.md; ``Simulation`` routes here automatically above
-    ``ops.step.FLAT_AUTO_THRESHOLD`` bodies).
-
-    Same uniform-box distribution as ``init_state`` (each coordinate
-    i.i.d. uniform over ±max_pos), but NOT bit-identical per seed — the
-    PRNG consumes the flat shape directly so the (N, 3) sample never
-    materializes."""
-    if cfg.dtype != "float32":
-        # Flat mode drives the float32-only pallas_sym* kernels; refuse
-        # rather than silently ignoring the configured precision.
-        raise ValueError(
-            f"flat-state mode is float32-only (pallas kernels); got "
-            f"dtype={cfg.dtype!r}")
-    if key is None:
-        key = jax.random.key(cfg.seed)
-    kpos, kmass = jax.random.split(key)
-    n = cfg.n_bodies
-    pos = jax.random.uniform(
-        kpos, (3 * n,), dtype=jnp.float32,
-        minval=-cfg.max_pos, maxval=cfg.max_pos)
-    mass = jax.random.uniform(
-        kmass, (n,), dtype=jnp.float32,
-        minval=cfg.min_mass, maxval=cfg.max_mass)
-    zeros = jnp.zeros((3 * n,), dtype=jnp.float32)
-    return FlatState(pos=pos, vel=zeros, acc=zeros, mass=mass)
 
 
 def plummer_state(cfg: SimConfig, key: "jax.Array | None" = None,
@@ -225,7 +190,8 @@ def collision_state(cfg: SimConfig, key: "jax.Array | None" = None,
 
 
 # CLI-facing registry (`--init`); "uniform" is handled by the callers
-# (Simulation inits directly, flat-capable) rather than through this map.
+# (Simulation inits directly, born sharded on a mesh) rather than through
+# this map.
 INIT_MAKERS = {
     "plummer": plummer_state,
     "plummer-virial": plummer_virial_state,

@@ -161,8 +161,7 @@ def max_rel_error(pos, ref: np.ndarray, scale: float) -> float:
 
 def run_analytic_gates(impl: str = "auto", dtype: str = "float32",
                        steps_per_period: int = 2048,
-                       block_i: "int | None" = None,
-                       block_u: "int | None" = None) -> "list[dict]":
+                       block_i: "int | None" = None) -> "list[dict]":
     """Run the three closed-form gates through the PRODUCT step path
     (``ops.step.run_steps`` with the chosen backend), one period each.
 
@@ -190,8 +189,6 @@ def run_analytic_gates(impl: str = "auto", dtype: str = "float32",
         kw = {}
         if block_i:
             kw["block_i"] = block_i
-        if block_u:
-            kw["block_u"] = block_u
         return SimConfig(n_bodies=2, dt=dt, eps2=eps2, impl=impl,
                          dtype=dtype, integrator=integrator, **kw)
 

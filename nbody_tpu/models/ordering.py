@@ -1,11 +1,9 @@
 """Spatial (Morton / Z-order) body reordering.
 
-The reference never reorders bodies (body index = thread index forever).  On
-TPU, spatial ordering is a performance feature: with bodies sorted so that
-index-adjacent bodies are space-adjacent, an i-block of the tiled force sweep
-is spatially compact, which (a) improves the accuracy envelope of
-MXU-offloaded distance computation via per-block centering, and (b) is the
-prerequisite for any future range-culling.  Reordering is a pure permutation
+The reference never reorders bodies (body index = thread index forever).
+Spatial ordering makes index-adjacent bodies space-adjacent, so an i-block
+of the tiled force sweep is spatially compact — the prerequisite for any
+future range-culling or per-block centering.  Reordering is a pure permutation
 of body identity — trajectories are unchanged modulo relabeling (gravity is
 permutation-equivariant), verified in tests.
 

@@ -2,10 +2,10 @@
 
 The reference stores bodies as AoS ``float4 {x,y,z,w=mass}`` plus float4/float3
 velocity and acceleration arrays in GPU global memory (``kernel.cu:80``,
-``main.cpp:250-252``).  The TPU-native layout is SoA — ``(N, 3)`` coordinate
-arrays plus a separate ``(N,)`` mass vector — which is the
-vectorization-friendly layout for the VPU's 8x128 lanes, and lets mass be
-broadcast separately from positions in the force kernels.
+``main.cpp:250-252``).  Here the state is ``(N, 3)`` coordinate arrays plus a
+separate ``(N,)`` mass vector, so mass can be broadcast separately from
+positions; the tiled force kernel repacks the four fields as a ``(4, N)``
+SoA array (``ops/forces_pallas.py``).
 
 Padding: the reference guards out-of-range threads with ``tid >= N`` checks
 (``kernel.cu:90-92``).  Here N is padded up to a tile multiple with *ghost
@@ -36,58 +36,6 @@ class SimState(NamedTuple):
     @property
     def n(self) -> int:
         return self.pos.shape[0]
-
-
-class FlatState(NamedTuple):
-    """N-body state in FLAT row-major layout: coordinates live as ``(3N,)``
-    arrays ``[x0, y0, z0, x1, ...]`` — the >20M-body representation.
-
-    Above ~16M bodies an ``(N, 3)`` device array cannot be consumed safely
-    on this stack (any op touching it materializes a T(8,128) tiled copy
-    padding the minor dim 3->128 — 42.7x, measured OOM at N=32M;
-    docs/PERF.md memory walls), so huge-N state stays flat END TO END:
-    the integrators are elementwise (shape-agnostic) and the force
-    dispatcher has a flat core (``forces_pallas_sym_chunked_flat``).
-    Carries the same leaves as ``SimState`` so host services (logging,
-    checkpointing, watchdogs) can treat the two uniformly via ``.pos`` /
-    ``.mass``."""
-
-    pos: jax.Array   # (3N,) row-major positions
-    vel: jax.Array   # (3N,)
-    acc: jax.Array   # (3N,)
-    mass: jax.Array  # (N,)
-
-    @property
-    def n(self) -> int:
-        return self.mass.shape[0]
-
-
-def is_flat(state) -> bool:
-    """True when ``state`` uses the flat (3N,) coordinate layout."""
-    return state.pos.ndim == 1
-
-
-def flat_from_state(state: SimState) -> FlatState:
-    """SimState -> FlatState.  The (N,3)->(3N,) reshape happens HOST-side
-    (free view) so no device op ever consumes the (N,3) array at huge N —
-    use only where the (N,3) arrays already exist (small N, tests,
-    checkpoint restore)."""
-    return FlatState(
-        pos=jnp.asarray(np.asarray(state.pos).reshape(-1)),
-        vel=jnp.asarray(np.asarray(state.vel).reshape(-1)),
-        acc=jnp.asarray(np.asarray(state.acc).reshape(-1)),
-        mass=state.mass,
-    )
-
-
-def state_from_flat(flat: FlatState) -> SimState:
-    """FlatState -> SimState, host-side reshape (same caveat as above)."""
-    return SimState(
-        pos=jnp.asarray(np.asarray(flat.pos).reshape(-1, 3)),
-        vel=jnp.asarray(np.asarray(flat.vel).reshape(-1, 3)),
-        acc=jnp.asarray(np.asarray(flat.acc).reshape(-1, 3)),
-        mass=flat.mass,
-    )
 
 
 def round_up(n: int, multiple: int) -> int:

@@ -1,4 +1,5 @@
-"""Force-backend dispatch.
+"""Force-backend dispatch, and the one rule that decides which force path
+runs on this device.
 
 The analog of the reference's kernel-family selection (``REDUCTION``/``FADL``
 compile-time flags + stdin kernel-type prompt, ``constants.h:4-7`` /
@@ -9,68 +10,43 @@ from __future__ import annotations
 
 import jax
 
-import jax.numpy as jnp
-
 from ..config import SimConfig
 from .forces_xla import forces_chunked, forces_nxn
 
 # Full NxN materialization is O(N^2); cap where its ~(N^2 * 4B) buffers stay
-# comfortably in HBM and compile time stays sane.
+# comfortably in device memory and compile time stays sane.
 _NXN_MAX_N = 16384
+
+# XLA's broadcast+reduce form is the small-N path off the GPU kernel.
+_NXN_AUTO_MAX_N = 4096
+
+# Smallest N at which the tiled kernel beats both XLA paths end to end on
+# an H100: it loses at N <= 2048, where too few programs fill the card, and
+# wins from 4096 up (PERF.md "Kernel against XLA").
+PALLAS_MIN_N = 4096
+
+
+def kernel_available() -> bool:
+    """True when the tiled Pallas kernel compiles for this process's
+    default device (the GPU, through Triton)."""
+    return jax.default_backend() == "gpu"
 
 
 def resolve_impl(cfg: SimConfig, sharded: bool = False) -> str:
-    """Resolve impl='auto' to a concrete backend for this process's devices.
+    """Resolve impl='auto' to a concrete force path for this device.
 
-    ``sharded``: the caller will run the config on a mesh.  Mesh runs
-    preempt the VMEM-resident mode (Simulation requires mesh is None), so
-    the 2048 < N < 3072 redirect below — which exists only to hand those N
-    to the resident window — would otherwise leave per-step sym2 in a
-    range where the one-sided kernel measures faster (ADVICE r3)."""
-    impl = cfg.impl
-    if impl != "auto":
-        return impl
-    if cfg.dtype != "float32":
-        # Pallas kernels are float32-only; the XLA paths follow input dtype.
-        return "xla_nxn" if cfg.n_bodies <= 4096 else "xla"
-    if cfg.resident is True:
-        # Forced resident: resolve to an impl the resident path can serve
-        # at ANY N and on any backend (interpret mode off-TPU);
-        # should_use_resident itself raises if the config is truly out of
-        # scope.  Without this, forcing at N<=2048 resolves to 'pallas'
-        # (or 'xla_nxn' off-TPU) and the force contract errors on the
-        # impl instead of engaging (review r6).
-        return "pallas_sym2"
-    on_tpu = jax.default_backend() == "tpu"
-    if cfg.n_bodies <= 4096 and not on_tpu:
-        return "xla_nxn"
-    if on_tpu:
-        # sym2 = the symmetric-weight exact tier (23 flops/pair, same
-        # oracle-exact contract; docs/PERF.md round 4).  It beats the
-        # one-sided kernel at EVERY measured N >= 3072 (same-protocol
-        # sweep, scripts/r5_crossover.py, re-measured under the fair
-        # long-run protocol in scripts/r6_fair.py: 176.8 vs 89.3 G/s at
-        # 3072, 139.5 vs ~124 at 4096, 195.8 vs ~168 at 8192); at 2048
-        # the superblock ghost padding flips it (81.9 vs 123.3) and the
-        # one-sided kernel's block auto-shrink wins.
-        if cfg.n_bodies >= 3072:
-            return "pallas_sym2"
-        # 2048 < N < 3072: reference-scheme runs ride the VMEM-resident
-        # window (resident >= sym2 >= pallas at every measured N there —
-        # scripts/r6_fair.py); resolve to sym2 so the routing layers
-        # (Simulation/bench_lib) engage it.  At N <= 2048 the resident
-        # layout degenerates to a diagonal-only sweep (parity with
-        # pallas) and auto stays on the one-sided kernel.  KDK-composed
-        # schemes don't redirect here: their resident window opens above
-        # 3072 (ops/resident.py) and per-step sym2 below 3072 is
-        # unmeasured-to-losing.
-        from .resident import resident_layout
-        if (not sharded and cfg.resident is not False
-                and cfg.integrator == "reference"):
-            lay = resident_layout(cfg.n_bodies)
-            if lay is not None and lay[0] >= 3:
-                return "pallas_sym2"
+    On the GPU, float32 runs of at least ``PALLAS_MIN_N`` bodies take the
+    tiled kernel.  Everything else takes XLA: the broadcast+reduce form at
+    small N on one device, the chunked form otherwise (a mesh's local sweep
+    is rectangular, which only the chunked form and the kernel serve)."""
+    if cfg.impl != "auto":
+        return cfg.impl
+    n = cfg.n_bodies
+    if (kernel_available() and cfg.dtype == "float32"
+            and n >= PALLAS_MIN_N):
         return "pallas"
+    if n <= _NXN_AUTO_MAX_N and not sharded:
+        return "xla_nxn"
     return "xla"
 
 
@@ -86,29 +62,8 @@ def compute_forces(pos: jax.Array, mass: jax.Array, cfg: SimConfig,
         return forces_nxn(pos, mass, cfg.eps2)
     if impl == "xla":
         return forces_chunked(pos, mass, cfg.eps2, chunk=cfg.chunk)
-    if impl in ("pallas", "pallas_kahan", "pallas_mxu", "pallas_fast",
-                "pallas_turbo", "pallas_sym", "pallas_sym2",
-                "pallas_sym_turbo", "pallas_sym_turbo2", "pallas_sym_mxu"):
-        if pos.dtype != jnp.float32:
-            raise ValueError(
-                f"pallas force kernels are float32-only (got {pos.dtype}); "
-                "use impl='xla' for float64/bfloat16 state")
-        if impl.startswith("pallas_sym"):
-            # Pair-symmetric kernels (each pair computed once, N3L).
-            from .forces_pallas_sym import forces_pallas_sym
-            variant = {"pallas_sym": "vpu", "pallas_sym2": "vpu2",
-                       "pallas_sym_turbo": "turbo",
-                       "pallas_sym_turbo2": "turbo2",
-                       "pallas_sym_mxu": "mxu"}[impl]
-            return forces_pallas_sym(
-                pos, mass, cfg.eps2, block_i=cfg.block_i,
-                block_u=cfg.block_u, panel_nb=cfg.panel_nb,
-                variant=variant)
-        from .forces_pallas import forces_pallas
-        variant = {"pallas": "vpu", "pallas_kahan": "vpu_kahan",
-                   "pallas_mxu": "mxu", "pallas_fast": "fast",
-                   "pallas_turbo": "turbo"}[impl]
-        return forces_pallas(pos, mass, cfg.eps2,
-                             block_i=cfg.block_i, block_j=cfg.block_j,
-                             variant=variant)
+    if impl == "pallas":
+        from . import forces_pallas
+        return forces_pallas.forces_pallas(
+            pos, mass, cfg.eps2, block_i=cfg.block_i, block_j=cfg.block_j)
     raise ValueError(f"unknown force impl {impl!r}")

@@ -1,55 +1,27 @@
-"""Pallas VMEM-tiled all-pairs force kernels — the TPU-native analog of the
-reference's shared-memory tiled CUDA kernel (``kernel.cu:80-130``).
+"""Tiled all-pairs force kernel in Pallas, compiled through Triton for the
+GPU — the analog of the reference's shared-memory tiled CUDA kernel
+(``kernel.cu:80-130``).
 
-Mapping (SURVEY.md section 2.2):
+Mapping:
 
-- CUDA thread block staging a j-tile into shared memory + ``__syncthreads``
-  (``kernel.cu:99-113``)  ==>  Pallas ``BlockSpec`` streaming j-tiles
-  HBM->VMEM across grid steps, double-buffered by the Pallas pipeline.
-- one-thread-per-body serial sweep  ==>  an (BI x BJ) vectorized interaction
-  block; the i-block's accumulator lives in VMEM across the whole j sweep
-  (the analog of the per-thread register accumulator).
-- ``1/sqrtf(distSqrt^3)`` (``kernel.cu:20``)  ==>  ``jax.lax.rsqrt`` on the
-  VPU.
-- launch-config / shared-memory-capacity checks (``kernel.cu:632-641``)  ==>
-  VMEM-budget validation in the wrapper.
+- one thread per body accumulating in registers (``kernel.cu:96-114``)  ==>
+  one program holds ``block_i`` bodies and walks every j-tile of
+  ``block_j`` bodies with a ``lax.fori_loop`` over ``pl.ds`` loads; the
+  (block_i, block_j) partial sums stay in registers for the whole sweep
+  and are reduced over j once, after the loop.
+- the block's cooperative shared-memory staging + ``__syncthreads``
+  (``kernel.cu:99-113``)  ==>  Triton's software pipeline over the j loop
+  (``num_stages``).
+- ``float4 {x, y, z, w=m}`` bodies (``kernel.cu:80``)  ==>  the same four
+  fields laid out as an SoA ``(4, N_pad)`` array, so every load is a
+  contiguous power-of-two row slice.
+- the ``tid >= N`` guards (``kernel.cu:90-92``)  ==>  zero-mass ghost
+  padding: a ghost contributes exactly zero force, and the self-pair
+  vanishes through r = 0 under softening (``kernel.cu:17-27``).
+- ``1/sqrtf(distSqrt^3)`` (``kernel.cu:20``)  ==>  ``lax.rsqrt``.
 
-Three kernel variants (a richer ladder than the reference's tiled/reduction/
-FADL/float3 family, with the same role: capability + optimization tiers):
-
-- ``vpu`` (default, validation-grade): everything on the VPU; ~19 flops/pair.
-  The self-pair vanishes exactly via r=0, like the reference
-  (kernel.cu:17-27).  Bit-faithful to the reference force law.
-- ``mxu`` (near-validation-grade): exact VPU distances, but the accumulation
-  ``acc = f @ [xj|1] - xi * rowsum(f)`` runs on the MXU as two bf16 matmuls
-  over hi/lo splits of both ``f`` and ``xj`` (~1e-5 relative per pair).
-  Measured vs the f64 oracle at N=8192: p99 component error 3e-4, with a
-  ~1e-4 fraction of components (those where contributions cancel to <<1 of
-  their gross magnitude) outside the strict 1% gate.  The self pair is
-  masked out of the matmul on diagonal tiles (its ~1e18 product would
-  poison the fp32 row accumulation).  Moves ~6 of ~19 flops/pair to the MXU.
-- ``fast`` (near-validation-grade, MXU-distance demonstration): additionally
-  computes the *distances* on the MXU via per-j-tile centering:
-  d2 = |u|^2 - 2 u.v + |v|^2 with u = xi - c, v = xj - c, where the cross
-  term is ONE bf16 MXU pass over K=18 packed operands encoding the six limb
-  products of 3-limb (~24-bit) splits of u and v — fp32-grade precision
-  with zero (BI,BJ)-sized VPU distance work.  Centered cancellation bounds
-  accuracy by j-tile spatial extent, so inputs should be Morton-sorted
-  (models/ordering.py).  Measured compiled on v5e (N=512): 0 bad fraction
-  at the 1% gate, p99 3e-4.  NOTE: on v5e the in-kernel j-side derivation
-  plus MXU passes outweigh the saved VPU flops, so this variant is
-  *slower* than ``vpu`` (~110 vs ~142 G/s at 65k) — kept as the
-  capability-parity "alternative decomposition" (the role the reference's
-  reduction family plays) and for hardware where the balance differs.
-- ``turbo`` (speed tier, fastest measured): exact VPU distances + ONE bf16
-  accumulate matmul.  bf16 rounding of f puts ~0.4% on each pair force
-  (p99 component error ~1e-2 vs oracle — the documented contract).
-  ~1.25x the exact ``vpu`` kernel on v5e.
-
-Layout: positions are passed as (N,3) [i-side and matmul operand] and
-transposed (3,N) [j-side broadcasts] so both broadcast shapes are natural
-slices with no in-kernel transposes; the (3,N) copy is refreshed once per
-step by XLA (a cheap transpose vs the O(N^2) sweep).
+Precision is the exact float32 class: float32 state, float32 pair terms,
+plain float32 sums; no matrix units (TF32 would leave the class).
 """
 
 from __future__ import annotations
@@ -59,486 +31,124 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..models.state import round_up
 
-# VMEM ceiling for the kernel working set (per-core VMEM is ~16 MB
-# less pipeline overheads).  The analog of the reference's
-# sharedMemPerBlock check (kernel.cu:637-641).
-_VMEM_BUDGET_BYTES = 12 * 1024 * 1024
-
-VARIANTS = ("vpu", "vpu_kahan", "mxu", "fast", "turbo")
-
-
-def _validate_blocks(ni_pad: int, block_i: int, block_j: int,
-                     nj_pad: "int | None" = None):
-    nj_pad = ni_pad if nj_pad is None else nj_pad
-    if block_i % 8 != 0:
-        raise ValueError(f"block_i must be a multiple of 8, got {block_i}")
-    if block_j % 128 != 0:
-        raise ValueError(f"block_j must be a multiple of 128, got {block_j}")
-    if ni_pad % block_i or nj_pad % block_j:
-        raise ValueError(
-            f"padded Ni={ni_pad}/Nj={nj_pad} must divide block_i={block_i} "
-            f"and block_j={block_j}")
-    # Working set: ~2 live (BI,BJ) f32 temporaries (Mosaic fuses the
-    # elementwise chain; 512x2048 measured fine on v5e) + i/j blocks +
-    # accumulator, x2 for pipeline double-buffering of streamed operands.
-    interaction = 2 * block_i * block_j * 4
-    blocks = 2 * (block_i * 3 + 3 * block_j + block_j + block_i * 3) * 4
-    if interaction + blocks > _VMEM_BUDGET_BYTES:
-        raise ValueError(
-            f"block_i={block_i} x block_j={block_j} needs ~"
-            f"{(interaction + blocks) / 1e6:.1f} MB VMEM > budget "
-            f"{_VMEM_BUDGET_BYTES / 1e6:.1f} MB; shrink the blocks")
+# Chosen by a block sweep on an H100 (PERF.md "Kernel block sweep"): the
+# fastest shape at N=8,192, where a small block_i keeps enough programs in
+# flight for 132 SMs, and within a few per cent of the best at larger N.
+DEFAULT_BLOCK_I = 32
+DEFAULT_BLOCK_J = 64
+DEFAULT_NUM_WARPS = 8
+DEFAULT_NUM_STAGES = 3
 
 
-def _bf16_split(x):
-    """hi/lo bfloat16 decomposition: hi + lo reproduces x to ~16-17 bits."""
-    hi = x.astype(jnp.bfloat16)
-    lo = (x - hi.astype(jnp.float32)).astype(jnp.bfloat16)
-    return hi, lo
+def _force_kernel(pos_i_ref, pos_j_ref, ax_ref, ay_ref, az_ref, *, eps2,
+                  block_i, block_j, n_j_tiles):
+    xi = pos_i_ref[0, :][:, None]                  # (BI, 1)
+    yi = pos_i_ref[1, :][:, None]
+    zi = pos_i_ref[2, :][:, None]
 
+    def body(t, acc):
+        ax, ay, az = acc
+        cols = pl.ds(t * block_j, block_j)
+        dx = pos_j_ref[0, cols][None, :] - xi       # (BI, BJ)
+        dy = pos_j_ref[1, cols][None, :] - yi
+        dz = pos_j_ref[2, cols][None, :] - zi
+        d2 = dx * dx + dy * dy + dz * dz + eps2
+        f = pos_j_ref[3, cols][None, :] * jax.lax.rsqrt(d2 * d2 * d2)
+        return ax + f * dx, ay + f * dy, az + f * dz
 
-def _bf16_split3(x):
-    """3-limb bfloat16 decomposition: hi+mid+lo reproduces x to ~24 bits
-    (fp32-grade)."""
-    hi = x.astype(jnp.bfloat16)
-    r1 = x - hi.astype(jnp.float32)
-    mid = r1.astype(jnp.bfloat16)
-    lo = (r1 - mid.astype(jnp.float32)).astype(jnp.bfloat16)
-    return hi, mid, lo
-
-
-def _pack_u18(u):
-    """i-side packing for the K=18 cross-product matmul: with the j-side
-    packed as [vh vh vh vm vl vm], the contraction yields
-    uh.vh + um.vh + ul.vh + uh.vm + uh.vl + um.vm — the 6 limb products
-    of u.v down to ~2^-24 relative, in ONE bf16 MXU pass."""
-    uh, um, ul = _bf16_split3(u)
-    return jnp.concatenate([uh, um, ul, uh, uh, um], axis=1)
-
-
-def _pack_v18(v):
-    vh, vm, vl = _bf16_split3(v)
-    return jnp.concatenate([vh, vh, vh, vm, vl, vm], axis=1)
-
-
-def _mxu_accumulate(f, xi, pos_j, block_j):
-    """acc contribution of this tile via two bf16 MXU matmuls:
-    (f_hi + f_lo) @ [xj_hi | xj_lo | 1 | 0]  ->  sum f*xj and rowsum(f).
-    Returns the (BI,3) tile contribution f@xj - xi*rowsum(f).  Callers
-    must zero the self-pair in f beforehand on diagonal tiles (its ~1e18
-    product would poison the fp32 row accumulation)."""
-    fhi, flo = _bf16_split(f)
-    hj, lj = _bf16_split(pos_j)
-    ones = jnp.ones((block_j, 1), jnp.bfloat16)
-    zeros = jnp.zeros((block_j, 1), jnp.bfloat16)
-    xj8 = jnp.concatenate([hj, lj, ones, zeros], axis=1)     # (BJ, 8) bf16
-    dn = (((1,), (0,)), ((), ()))
-    out = (jax.lax.dot_general(fhi, xj8, dn,
-                               preferred_element_type=jnp.float32)
-           + jax.lax.dot_general(flo, xj8, dn,
-                                 preferred_element_type=jnp.float32))
-    return (out[:, 0:3] + out[:, 3:6]) - xi * out[:, 6:7]
-
-
-def _force_kernel_vpu(pos_i_ref, posT_j_ref, mass_j_ref, acc_ref, *, eps2):
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    xi = pos_i_ref[:]                      # (BI, 3)
-    xj = posT_j_ref[:]                     # (3, BJ)
-    m = mass_j_ref[:]                      # (1, BJ)
-
-    dx = xj[0:1, :] - xi[:, 0:1]           # (BI, BJ)
-    dy = xj[1:2, :] - xi[:, 1:2]
-    dz = xj[2:3, :] - xi[:, 2:3]
-    d2 = dx * dx + dy * dy + dz * dz + eps2
-    f = m * jax.lax.rsqrt(d2 * d2 * d2)    # (BI, BJ)
-
-    ax = jnp.sum(f * dx, axis=1, keepdims=True)   # (BI, 1)
-    ay = jnp.sum(f * dy, axis=1, keepdims=True)
-    az = jnp.sum(f * dz, axis=1, keepdims=True)
-    acc_ref[:] += jnp.concatenate([ax, ay, az], axis=1)
-
-
-def _force_kernel_vpu_kahan(pos_i_ref, posT_j_ref, mass_j_ref, acc_ref,
-                            comp_ref, *, eps2):
-    """Exact kernel + Kahan-compensated accumulation across j-tiles.
-
-    Opt-in precision tier for the drift-gate analysis (BASELINE.md): the
-    per-tile contribution enters the running i-block sum through a
-    two-sum with a persistent compensation buffer, removing the fp32
-    accumulation-order error across the j sweep.  Measured effect is
-    documented in BASELINE.md — the binding error at reference physics is
-    the integrator during unsoftened encounters, not summation."""
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-        comp_ref[:] = jnp.zeros_like(comp_ref)
-
-    xi = pos_i_ref[:]
-    xj = posT_j_ref[:]
-    m = mass_j_ref[:]
-
-    dx = xj[0:1, :] - xi[:, 0:1]
-    dy = xj[1:2, :] - xi[:, 1:2]
-    dz = xj[2:3, :] - xi[:, 2:3]
-    d2 = dx * dx + dy * dy + dz * dz + eps2
-    f = m * jax.lax.rsqrt(d2 * d2 * d2)
-
-    ax = jnp.sum(f * dx, axis=1, keepdims=True)
-    ay = jnp.sum(f * dy, axis=1, keepdims=True)
-    az = jnp.sum(f * dz, axis=1, keepdims=True)
-    contrib = jnp.concatenate([ax, ay, az], axis=1)
-
-    # Kahan two-sum: acc += contrib with carried compensation.
-    y = contrib - comp_ref[:]
-    t = acc_ref[:] + y
-    comp_ref[:] = (t - acc_ref[:]) - y
-    acc_ref[:] = t
-
-
-def _force_kernel_turbo(pos_i_ref, posT_j_ref, pos_j_ref, mass_j_ref,
-                        acc_ref, *, eps2, block_i, block_j, mask_self=True):
-    """Speed tier: exact VPU distances + ONE bf16 accumulate matmul.
-
-    The 6 accumulation flops/pair (f*dx + reductions) move to a single
-    bf16 MXU pass ``bf16(f) @ [xj_hi | xj_lo | 1 | 0]``; bf16 rounding of f
-    puts ~0.4% error on each pair force (p99 component error ~1-2% vs the
-    oracle — the documented contract of this tier).  Fastest variant
-    measured on v5e (~1.25x the exact vpu kernel).
-
-    ``mask_self=False`` (static) drops the self-pair mask entirely — valid
-    ONLY when the i and j body sets are disjoint (multi-chip ring rotations
-    past step 0), where index equality does not mean 'same body'."""
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    xi = pos_i_ref[:]                      # (BI, 3)
-    xjT = posT_j_ref[:]                    # (3, BJ)
-    m = mass_j_ref[:]                      # (1, BJ)
-
-    dx = xjT[0:1, :] - xi[:, 0:1]
-    dy = xjT[1:2, :] - xi[:, 1:2]
-    dz = xjT[2:3, :] - xi[:, 2:3]
-    d2 = dx * dx + dy * dy + dz * dz + eps2
-    f = m * jax.lax.rsqrt(d2 * d2 * d2)    # (BI, BJ) f32
-
-    if mask_self:
-        # Mask the self-pair before the matmul (see the mxu kernel note).
-        i0 = i * block_i
-        j0 = j * block_j
-        row = i0 + jax.lax.broadcasted_iota(jnp.int32, (block_i, block_j), 0)
-        col = j0 + jax.lax.broadcasted_iota(jnp.int32, (block_i, block_j), 1)
-        f = jnp.where(row == col, 0.0, f)
-
-    xj = pos_j_ref[:]
-    hj, lj = _bf16_split(xj)
-    xj8 = jnp.concatenate(
-        [hj, lj, jnp.ones((block_j, 1), jnp.bfloat16),
-         jnp.zeros((block_j, 1), jnp.bfloat16)], axis=1)
-    out = jax.lax.dot_general(
-        f.astype(jnp.bfloat16), xj8, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32)
-    acc_ref[:] += (out[:, 0:3] + out[:, 3:6]) - xi * out[:, 6:7]
-
-
-def _force_kernel_mxu(pos_i_ref, posT_j_ref, pos_j_ref,
-                      mass_j_ref, acc_ref, *, eps2, block_i, block_j,
-                      mask_self=True):
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    xi = pos_i_ref[:]                      # (BI, 3)
-    xjT = posT_j_ref[:]                    # (3, BJ)
-    m = mass_j_ref[:]                      # (1, BJ)
-
-    dx = xjT[0:1, :] - xi[:, 0:1]
-    dy = xjT[1:2, :] - xi[:, 1:2]
-    dz = xjT[2:3, :] - xi[:, 2:3]
-    d2 = dx * dx + dy * dy + dz * dz + eps2
-    f = m * jax.lax.rsqrt(d2 * d2 * d2)    # (BI, BJ) f32
-
-    if not mask_self:
-        # Disjoint body sets (ring rotations past step 0): no self-pair
-        # can exist, skip the mask machinery entirely.
-        acc_ref[:] += _mxu_accumulate(f, xi, pos_j_ref[:], block_j)
-        return
-
-    # The self-pair factor f_ii = m_i * rsqrt(eps2^3) (~1e4*m_i) must be
-    # zeroed BEFORE the matmul: its xj product (~1e18) would poison the
-    # MXU's fp32 row accumulation (absorbing ~1e10 of rounding error that
-    # no post-hoc correction can repair).  In the VPU path this never
-    # arises because the self term is multiplied by r=0 first.  Masking
-    # costs ~3 ops/pair but only on the O(N/BJ) diagonal-overlapping tiles.
-    i0 = i * block_i
-    j0 = j * block_j
-    overlap = jnp.logical_and(i0 < j0 + block_j, i0 + block_i > j0)
-
-    @pl.when(overlap)
-    def _():
-        row = i0 + jax.lax.broadcasted_iota(
-            jnp.int32, (block_i, block_j), 0)
-        col = j0 + jax.lax.broadcasted_iota(
-            jnp.int32, (block_i, block_j), 1)
-        fm = jnp.where(row == col, 0.0, f)
-        acc_ref[:] += _mxu_accumulate(fm, xi, pos_j_ref[:], block_j)
-
-    @pl.when(jnp.logical_not(overlap))
-    def _():
-        acc_ref[:] += _mxu_accumulate(f, xi, pos_j_ref[:], block_j)
-
-
-def _force_kernel_fast(pos_i_ref, posT_j_ref, pos_j_ref, mass_j_ref,
-                       acc_ref, *, eps2, block_i, block_j, split_f,
-                       mask_self=True):
-    """Throughput kernel: centered distances AND accumulation on the MXU.
-
-    d2 via |u|^2 - 2 u.v + |v|^2 with u = xi - c_tile, v = xj - c_tile;
-    the cross term is ONE bf16 MXU pass over packed K=18 operands encoding
-    the six limb products of a 3-limb (~24-bit, fp32-grade) decomposition
-    of u and v — no (BI,BJ)-sized VPU work at all.
-
-    All j-side derived quantities (tile centroid, centered packs, hi/lo
-    position packs) are computed IN-KERNEL from the same plain inputs the
-    vpu/mxu kernels consume — O(BJ) per block, negligible vs the O(BI*BJ)
-    pair work.  (Earlier designs streamed them as precomputed operands;
-    XLA-computed auxiliary input streams get mis-ingested by the kernel on
-    this stack, so everything derived stays in-kernel.)
-    """
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    xi = pos_i_ref[:]                          # (BI, 3) f32
-    xj = pos_j_ref[:]                          # (BJ, 3) f32
-    xjT = posT_j_ref[:]                        # (3, BJ) f32
-
-    c = jnp.mean(xj, axis=0, keepdims=True)    # (1, 3) j-tile centroid
-    u = xi - c                                 # (BI, 3)
-    v = xj - c                                 # (BJ, 3)
-    un2 = jnp.sum(u * u, axis=1, keepdims=True)              # (BI, 1)
-    u18 = _pack_u18(u)                                       # (BI, 18) bf16
-    v18 = _pack_v18(v)                                       # (BJ, 18) bf16
-    # |v|^2 in (1, BJ) orientation from the transposed positions.
-    vxT = xjT[0:1, :] - c[0:1, 0:1]
-    vyT = xjT[1:2, :] - c[0:1, 1:2]
-    vzT = xjT[2:3, :] - c[0:1, 2:3]
-    vn2 = vxT * vxT + vyT * vyT + vzT * vzT                  # (1, BJ)
-    cross = jax.lax.dot_general(
-        u18, v18, (((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32)                  # (BI, BJ) MXU
-    d2 = (un2 + eps2) - (cross + cross) + vn2
-    # Centered cancellation leaves rounding noise for self/ultra-close
-    # pairs; clamp at the softening floor (closest physical d2 is eps2).
-    d2 = jnp.maximum(d2, eps2)
-    f = mass_j_ref[:] * jax.lax.rsqrt(d2 * d2 * d2)
-
-    if mask_self:
-        # Zero the self-pair before the accumulate matmul (mxu kernel note).
-        i0 = i * block_i
-        j0 = j * block_j
-        row = i0 + jax.lax.broadcasted_iota(jnp.int32, (block_i, block_j), 0)
-        col = j0 + jax.lax.broadcasted_iota(jnp.int32, (block_i, block_j), 1)
-        f = jnp.where(row == col, 0.0, f)
-
-    hj, lj = _bf16_split(xj)
-    xj8 = jnp.concatenate(
-        [hj, lj, jnp.ones((block_j, 1), jnp.bfloat16),
-         jnp.zeros((block_j, 1), jnp.bfloat16)], axis=1)     # (BJ, 8) bf16
-    dn = (((1,), (0,)), ((), ()))
-    if split_f:
-        fhi, flo = _bf16_split(f)
-        out = (jax.lax.dot_general(fhi, xj8, dn,
-                                   preferred_element_type=jnp.float32)
-               + jax.lax.dot_general(flo, xj8, dn,
-                                     preferred_element_type=jnp.float32))
-    else:
-        out = jax.lax.dot_general(f.astype(jnp.bfloat16), xj8, dn,
-                                  preferred_element_type=jnp.float32)
-    acc_ref[:] += (out[:, 0:3] + out[:, 3:6]) - xi * out[:, 6:7]
+    zero = jnp.zeros((block_i, block_j), jnp.float32)
+    ax, ay, az = jax.lax.fori_loop(0, n_j_tiles, body, (zero, zero, zero))
+    ax_ref[:] = jnp.sum(ax, axis=1)
+    ay_ref[:] = jnp.sum(ay, axis=1)
+    az_ref[:] = jnp.sum(az, axis=1)
 
 
 @functools.partial(
-    jax.jit, static_argnames=("eps2", "block_i", "block_j", "variant",
-                              "interpret", "mask_self"))
-def _forces_pallas_padded(pos_i, posT, pos_j, mass_row,
-                          eps2, block_i, block_j, variant, interpret,
-                          mask_self=True):
-    """Tiled sweep of the (Ni x Nj) interaction block.  ``pos_i``/``mass_col``
-    are the i-side (Ni,3)/(Ni,1); ``posT``/``pos_j``/``mass_row``/``cent``
-    are the j-side (3,Nj)/(Nj,3)/(1,Nj)/(Nj/BJ,3).  Square self-interaction
-    is the Ni==Nj case; the rectangular case is the building block of the
-    multi-chip ring sweep."""
-    ni_pad = pos_i.shape[0]
-    nj_pad = posT.shape[1]
-    grid = (ni_pad // block_i, nj_pad // block_j)
-
-    spec_pos_i = pl.BlockSpec((block_i, 3), lambda i, j: (i, 0),
-                              memory_space=pltpu.VMEM)
-    spec_posT_j = pl.BlockSpec((3, block_j), lambda i, j: (0, j),
-                               memory_space=pltpu.VMEM)
-    spec_pos_j = pl.BlockSpec((block_j, 3), lambda i, j: (j, 0),
-                              memory_space=pltpu.VMEM)
-    spec_mass_j = pl.BlockSpec((1, block_j), lambda i, j: (0, j),
-                               memory_space=pltpu.VMEM)
-    spec_cent_j = pl.BlockSpec(memory_space=pltpu.SMEM)  # full (n_tiles, 3)
-
-    scratch_shapes = []
-    if variant == "vpu":
-        kernel = functools.partial(_force_kernel_vpu, eps2=eps2)
-        in_specs = [spec_pos_i, spec_posT_j, spec_mass_j]
-        operands = (pos_i, posT, mass_row)
-    elif variant == "vpu_kahan":
-        kernel = functools.partial(_force_kernel_vpu_kahan, eps2=eps2)
-        in_specs = [spec_pos_i, spec_posT_j, spec_mass_j]
-        operands = (pos_i, posT, mass_row)
-        scratch_shapes = [pltpu.VMEM((block_i, 3), pos_i.dtype)]
-    elif variant == "mxu":
-        kernel = functools.partial(
-            _force_kernel_mxu, eps2=eps2, block_i=block_i, block_j=block_j,
-            mask_self=mask_self)
-        in_specs = [spec_pos_i, spec_posT_j, spec_pos_j, spec_mass_j]
-        operands = (pos_i, posT, pos_j, mass_row)
-    elif variant == "fast":
-        kernel = functools.partial(
-            _force_kernel_fast, eps2=eps2, block_i=block_i, block_j=block_j,
-            split_f=True, mask_self=mask_self)
-        in_specs = [spec_pos_i, spec_posT_j, spec_pos_j, spec_mass_j]
-        operands = (pos_i, posT, pos_j, mass_row)
-    elif variant == "turbo":
-        kernel = functools.partial(
-            _force_kernel_turbo, eps2=eps2, block_i=block_i, block_j=block_j,
-            mask_self=mask_self)
-        in_specs = [spec_pos_i, spec_posT_j, spec_pos_j, spec_mass_j]
-        operands = (pos_i, posT, pos_j, mass_row)
-    else:
-        raise ValueError(f"unknown variant {variant!r}")
-
-    return pl.pallas_call(
+    jax.jit, static_argnames=("eps2", "block_i", "block_j", "num_warps",
+                              "num_stages", "interpret"))
+def _sweep(soa_i, soa_j, eps2, block_i, block_j, num_warps, num_stages,
+           interpret):
+    """(4, Ni_pad) i-bodies x (4, Nj_pad) j-bodies -> (Ni_pad, 3)."""
+    ni_pad, nj_pad = soa_i.shape[1], soa_j.shape[1]
+    kernel = functools.partial(
+        _force_kernel, eps2=eps2, block_i=block_i, block_j=block_j,
+        n_j_tiles=nj_pad // block_j)
+    out_spec = pl.BlockSpec((block_i,), lambda i: (i,))
+    ax, ay, az = pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((block_i, 3), lambda i, j: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((ni_pad, 3), pos_i.dtype),
-        scratch_shapes=scratch_shapes,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
+        grid=(ni_pad // block_i,),
+        in_specs=[pl.BlockSpec((4, block_i), lambda i: (0, i)),
+                  pl.BlockSpec((4, nj_pad), lambda i: (0, 0))],
+        out_specs=[out_spec, out_spec, out_spec],
+        out_shape=[jax.ShapeDtypeStruct((ni_pad,), jnp.float32)] * 3,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=num_stages),
         cost_estimate=pl.CostEstimate(
             flops=20 * ni_pad * nj_pad,
-            bytes_accessed=(ni_pad * 3 + nj_pad * 3 + nj_pad) * 4,
-            transcendentals=ni_pad * nj_pad,
-        ),
+            bytes_accessed=(4 * ni_pad + 4 * nj_pad * (ni_pad // block_i)
+                            + 3 * ni_pad) * 4,
+            transcendentals=ni_pad * nj_pad),
         interpret=interpret,
-    )(*operands)
+        name="nbody_forces",
+    )(soa_i, soa_j)
+    return jnp.stack([ax, ay, az], axis=1)
 
 
-def _prep_j_side(pos_p, mass_p):
-    return pos_p.T, mass_p[None, :]
+def _soa(pos, mass, n_pad):
+    """(N,3),(N,) -> (4, n_pad) rows x/y/z/m, zero-mass ghosts appended."""
+    soa = jnp.concatenate([pos.T, mass[None, :]], axis=0)
+    return jnp.pad(soa, ((0, 0), (0, n_pad - pos.shape[0])))
 
 
-def _shrink_blocks(n_i, n_j, block_i, block_j):
-    while block_i > 8 and n_i < block_i:
-        block_i //= 2
-    while block_j > 128 and n_j < block_j:
-        block_j //= 2
-    return block_i, block_j
+def _check(pos, block_i, block_j, interpret):
+    if pos.dtype != jnp.float32:
+        raise ValueError(
+            f"the tiled force kernel is float32-only (got {pos.dtype}); "
+            "use impl='xla' for float64/bfloat16 state")
+    for name, b in (("block_i", block_i), ("block_j", block_j)):
+        if b < 1 or b & (b - 1):
+            raise ValueError(f"{name} must be a power of two, got {b}")
+    if not interpret and jax.default_backend() != "gpu":
+        raise RuntimeError(
+            f"the tiled force kernel compiles for the GPU only (backend is "
+            f"{jax.default_backend()!r}); pass interpret=True to run it in "
+            "the Pallas interpreter, or use impl='xla'")
 
 
 def forces_pallas(pos: jax.Array, mass: jax.Array, eps2: float,
-                  block_i: int = 256, block_j: int = 1024,
-                  use_mxu: bool = False, variant: "str | None" = None,
-                  interpret: "bool | None" = None) -> jax.Array:
-    """Softened all-pairs accelerations via the tiled Pallas kernel.
-
-    pos: (N,3) f32; mass: (N,) f32. N is padded internally with zero-mass
-    ghosts to a block multiple (the analog of the reference's tid>=N guards,
-    kernel.cu:90-92, made unnecessary by mass-0 padding).
-    """
-    if variant is None:
-        variant = "mxu" if use_mxu else "vpu"
-    if variant not in VARIANTS:
-        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
-    n = pos.shape[0]
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    # Shrink from the *unpadded* N (shrinking after padding can never fire,
-    # leaving small systems padded to the full default block size).
-    block_i, block_j = _shrink_blocks(n, n, block_i, block_j)
-    n_pad = round_up(n, max(block_i, block_j))
-    _validate_blocks(n_pad, block_i, block_j)
-
-    pad = n_pad - n
-    pos_p = jnp.pad(pos, ((0, pad), (0, 0)))
-    mass_p = jnp.pad(mass, (0, pad))
-    posT, mass_row = _prep_j_side(pos_p, mass_p)
-    acc = _forces_pallas_padded(
-        pos_p, posT, pos_p, mass_row,
-        float(eps2), block_i, block_j, variant, interpret)
-    return acc[:n]
+                  block_i: int = DEFAULT_BLOCK_I,
+                  block_j: int = DEFAULT_BLOCK_J,
+                  num_warps: int = DEFAULT_NUM_WARPS,
+                  num_stages: int = DEFAULT_NUM_STAGES,
+                  interpret: bool = False) -> jax.Array:
+    """Softened all-pairs accelerations via the tiled kernel.
+    (N,3) f32, (N,) f32 -> (N,3) f32."""
+    return rect_forces_pallas(pos, pos, mass, eps2, block_i=block_i,
+                              block_j=block_j, num_warps=num_warps,
+                              num_stages=num_stages, interpret=interpret)
 
 
-def rect_forces_pallas(pos_i: jax.Array, pos_j: jax.Array, mass_j: jax.Array,
-                       eps2: float, block_i: int = 256, block_j: int = 1024,
-                       variant: str = "vpu",
-                       interpret: "bool | None" = None,
-                       self_tile: bool = False) -> jax.Array:
-    """Forces of body set j on body set i via the tiled kernel.
-
-    ``self_tile`` declares whether i and j are the SAME body set (the
-    ring's rotation step 0, where local index equality means 'same body'):
-
-    - ``vpu`` needs no mask either way — r=0 self-pairs vanish under
-      softening (kernel.cu:17-27).
-    - ``mxu``/``fast``/``turbo`` mask the self-pair by index equality when
-      ``self_tile=True`` (it would poison the MXU accumulation, see
-      docs/PERF.md) and skip the mask entirely when the body sets are
-      disjoint (rotations past step 0) — index equality between different
-      shards does not mean 'same body', and masking there would zero
-      legitimate pairs.
-
-    Shapes must already be block multiples (the ring path pads shards once,
-    up front).  (Ni,3),(Nj,3),(Nj,) -> (Ni,3).
-    """
-    if variant not in VARIANTS:
-        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+def rect_forces_pallas(pos_i: jax.Array, pos_j: jax.Array,
+                       mass_j: jax.Array, eps2: float,
+                       block_i: int = DEFAULT_BLOCK_I,
+                       block_j: int = DEFAULT_BLOCK_J,
+                       num_warps: int = DEFAULT_NUM_WARPS,
+                       num_stages: int = DEFAULT_NUM_STAGES,
+                       interpret: bool = False) -> jax.Array:
+    """Forces of body set j on body set i — the rectangular block of the
+    interaction matrix, and the local sweep of each shard in the mesh ring
+    (``parallel/ring.py``).  Either set may hold ghosts or the other set's
+    bodies: no pair is masked, since self-pairs vanish through r = 0.
+    (Ni,3),(Nj,3),(Nj,) -> (Ni,3)."""
+    _check(pos_i, block_i, block_j, interpret)
     ni, nj = pos_i.shape[0], pos_j.shape[0]
-    if variant != "vpu" and self_tile and nj < ni:
-        raise ValueError(
-            "self_tile=True requires the j set to contain the i set as a "
-            f"prefix (got Ni={ni} > Nj={nj}): index equality must mean "
-            "'same body'")
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    block_i, block_j = _shrink_blocks(ni, nj, block_i, block_j)
-    if ni % block_i or nj % block_j:
-        raise ValueError(
-            f"rect_forces_pallas requires pre-padded shapes: Ni={ni} %% "
-            f"block_i={block_i}, Nj={nj} %% block_j={block_j} must be 0")
-    _validate_blocks(ni, block_i, block_j, nj_pad=nj)
-    posT, mass_row = _prep_j_side(pos_j, mass_j)
-    return _forces_pallas_padded(
-        pos_i, posT, pos_j, mass_row,
-        float(eps2), block_i, block_j, variant, interpret,
-        mask_self=self_tile)
+    soa_i = _soa(pos_i, jnp.zeros((ni,), jnp.float32), round_up(ni, block_i))
+    soa_j = _soa(pos_j, mass_j.astype(jnp.float32), round_up(nj, block_j))
+    acc = _sweep(soa_i, soa_j, float(eps2), block_i, block_j, num_warps,
+                 num_stages, bool(interpret))
+    return acc[:ni]

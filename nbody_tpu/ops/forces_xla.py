@@ -1,6 +1,6 @@
 """Pure-XLA all-pairs force backends.
 
-These are the TPU analog of the reference's *interaction-parallel* ("NxN
+These are the XLA analog of the reference's *interaction-parallel* ("NxN
 reduction") kernel family (``kernel.cu:163-469``): the O(N^2) interaction set
 is materialized as a matrix and reduced along j, instead of each body serially
 sweeping tiles.  Two variants, mirroring the reference's two shapes:
@@ -10,8 +10,9 @@ sweeping tiles.  Two variants, mirroring the reference's two shapes:
   reduce along j).  O(N^2) memory; its role is small-N cross-checking, exactly
   like the reference's reduction family at N=8192.
 - ``forces_chunked``: a ``lax.scan`` over i-chunks, each chunk an
-  (C x N) interaction block — bounded memory, usable at any N.  This is also
-  the oracle-independent second device implementation the Pallas kernel is
+  (C x N) interaction block summed in the direct form — bounded memory,
+  usable at any N.  This is also
+  the oracle-independent second device implementation the tiled kernel is
   cross-checked against (SURVEY.md section 4).
 
 Force math matches ``bodyInteractions`` (``kernel.cu:9-29``) exactly:
@@ -27,17 +28,17 @@ import jax.numpy as jnp
 
 def _pair_factor(d2):
     """m-free part: rsqrt(d2^3), the analog of ``1/sqrtf(distSqrt^3)``
-    (kernel.cu:20) computed with the VPU rsqrt."""
+    (kernel.cu:20)."""
     return jax.lax.rsqrt(d2 * d2 * d2)
 
 
 def rect_forces(pos_i: jax.Array, pos_j: jax.Array, mass_j: jax.Array,
                 eps2: float, chunk: int = 1024) -> jax.Array:
     """Forces exerted by body set j on body set i (the 'rectangular' block of
-    the interaction matrix).  This is the building block of the multi-chip
-    ring sweep (parallel/ring.py): each chip holds an i-shard and sweeps
-    rotating j-tiles — the cross-chip lift of the reference's intra-GPU tile
-    sweep (kernel.cu:99-114).
+    the interaction matrix).  This is the building block of the multi-device
+    ring sweep (parallel/ring.py): each device holds an i-shard and sweeps
+    rotating j-tiles — the cross-device lift of the reference's intra-GPU
+    tile sweep (kernel.cu:99-114).
 
     Direct-form accumulation (self-pairs vanish via r=0), chunked over i.
     (Ni,3),(Nj,3),(Nj,) -> (Ni,3).
@@ -68,48 +69,13 @@ def forces_nxn(pos: jax.Array, mass: jax.Array, eps2: float) -> jax.Array:
 
 def forces_chunked(pos: jax.Array, mass: jax.Array, eps2: float,
                    chunk: int = 1024) -> jax.Array:
-    """Scan over i-chunks; each chunk does a (C, N) interaction block.
+    """Scan over i-chunks; each chunk does a (C, N) interaction block,
+    summed in the direct form ``a_i = sum_j f_ij r_ij`` (the self-pair
+    vanishes through r_ii = 0, kernel.cu:17-27).
 
-    Accumulation uses the matmul decomposition
-    ``a_i = f @ pos - x_i * rowsum(f)`` so the (C,N)x(N,3) contraction runs on
-    the MXU.  With positions centered near the origin both terms are the same
-    magnitude as the result, so no catastrophic cancellation (unlike the
-    |xi|^2+|xj|^2-2xi.xj distance trick, deliberately NOT used: at domain
-    scale 1e5 its fp32 cancellation error ~1e3 would swamp eps2=2e-3).
-    """
-    n = pos.shape[0]
-    chunk = min(chunk, n)
-    n_pad = -(-n // chunk) * chunk
-    pad = n_pad - n
-    pos_p = jnp.pad(pos, ((0, pad), (0, 0)))
-    j_ids = jax.lax.broadcasted_iota(jnp.int32, (1, n), 1)
-
-    def body(_, args):
-        pos_c, start = args
-        r = pos[None, :, :] - pos_c[:, None, :]    # (C, N, 3)
-        d2 = jnp.sum(r * r, axis=-1) + eps2        # (C, N)
-        f = mass[None, :] * _pair_factor(d2)       # (C, N)
-        # Zero the self-pair. In the direct form it vanishes via r_ii = 0
-        # (kernel.cu:17-27), but through the matmul decomposition its factor
-        # f_ii = m_i * rsqrt(eps2^3) (~1e13 at reference scales) would be
-        # multiplied by x_i on both sides and cancel only in exact
-        # arithmetic — so mask it explicitly.
-        i_ids = start + jax.lax.broadcasted_iota(jnp.int32, (f.shape[0], 1), 0)
-        f = jnp.where(j_ids == i_ids, 0.0, f)
-        # precision=HIGHEST: on TPU the MXU's DEFAULT contraction truncates
-        # the inputs to bfloat16 (preferred_element_type only widens the
-        # ACCUMULATOR) — measured badfrac 24% / p99 0.17 vs the f64 oracle
-        # at N=262144 on v5e, i.e. worse than the turbo tier on a backend
-        # documented as exact-class.  HIGHEST (6-pass bf16 = f32-exact
-        # multiplies) restores p99 ~1e-5; this backend is the
-        # cross-check/fallback path, so the ~6x matmul cost is fine.
-        acc_c = (
-            jnp.dot(f, pos, preferred_element_type=pos.dtype,
-                    precision=jax.lax.Precision.HIGHEST)
-            - pos_c * jnp.sum(f, axis=1, keepdims=True)
-        )
-        return None, acc_c.astype(pos.dtype)
-
-    starts = jnp.arange(0, n_pad, chunk, dtype=jnp.int32)
-    _, acc = jax.lax.scan(body, None, (pos_p.reshape(-1, chunk, 3), starts))
-    return acc.reshape(n_pad, 3)[:n]
+    The direct form keeps the exact float32 class.  (A matmul
+    decomposition ``a_i = f @ pos - x_i * rowsum(f)`` would cancel two
+    terms of magnitude |x_i| * rowsum(f): a close pair at domain scale
+    1e5 puts that cancellation error past the 1% gate.)
+    (N,3),(N,) -> (N,3)."""
+    return rect_forces(pos, pos, mass, eps2, chunk=chunk)

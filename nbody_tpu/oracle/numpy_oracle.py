@@ -21,24 +21,26 @@ import numpy as np
 
 
 def oracle_forces(pos: np.ndarray, mass: np.ndarray, eps2: float,
-                  dtype=np.float64) -> np.ndarray:
+                  dtype=np.float64, rows=None) -> np.ndarray:
     """All-pairs softened accelerations with explicit i != j guard
-    (validation.cpp:29-36)."""
+    (validation.cpp:29-36).  ``rows``: optional index array — return the
+    accelerations of those bodies only (each still against all N), so a
+    large system can be spot-checked on a sample."""
     pos = np.asarray(pos, dtype=dtype)
     mass = np.asarray(mass, dtype=dtype)
     n = pos.shape[0]
-    acc = np.zeros((n, 3), dtype=dtype)
+    rows = np.arange(n) if rows is None else np.asarray(rows)
+    acc = np.zeros((rows.shape[0], 3), dtype=dtype)
     # Vectorized over j for each i, chunked to bound memory.
     chunk = max(1, min(n, 8 * 1024 * 1024 // max(n, 1)))
-    for s in range(0, n, chunk):
-        e = min(s + chunk, n)
-        r = pos[None, :, :] - pos[s:e, None, :]       # (C, N, 3)
+    for s in range(0, rows.shape[0], chunk):
+        idx = rows[s:s + chunk]
+        r = pos[None, :, :] - pos[idx, None, :]       # (C, N, 3)
         d2 = np.sum(r * r, axis=-1) + eps2
         f = mass[None, :] / np.sqrt(d2 * d2 * d2)     # (C, N)
-        # i != j guard (validation.cpp:34): zero the diagonal slice.
-        idx = np.arange(s, e)
-        f[idx - s, idx] = 0.0
-        acc[s:e] = np.einsum("cn,cnd->cd", f, r)
+        # i != j guard (validation.cpp:34): zero the diagonal entries.
+        f[np.arange(idx.shape[0]), idx] = 0.0
+        acc[s:s + idx.shape[0]] = np.einsum("cn,cnd->cd", f, r)
     return acc
 
 

@@ -1,44 +1,31 @@
-"""Total energy ON A MESH — bounded per-chip pair-potential programs.
+"""Total energy ON A MESH — bounded per-device pair-potential programs.
 
 The reference has no conservation accounting at all (SURVEY.md §5); the
 rebuild's drift gates are defined over the softened pair potential, and
-``models/energy.py`` provides the single-device ladder (host f64 →
-``total_energy_bounded`` → flat panels).  This module closes the last
-single-device-only diagnostic: ``track_energy`` on a mesh previously had
-to either gather the born-sharded state to the host (the (N, 3) wall at
-flat-mode N) or run the bounded sweep on ONE chip while P-1 idle.
+``models/energy.py`` provides the single-device path (host f64, then
+``total_energy_bounded``).  This module computes ``track_energy`` on a mesh
+without gathering the sharded state to one device:
 
-Design — the PE analog of ``parallel/multiprog.py``'s bounded force
-dispatch:
-
-- state stays sharded; each chip sums ``m_i m_j (|r|^2+eps2)^{-1/2}``
+- state stays sharded; each device sums ``m_i m_j (|r|^2+eps2)^{-1/2}``
   of its row shard against a VISITING column shard that walks the ring
   (``lax.ppermute``), exactly the force ring's communication pattern;
 - symmetry halves the sweep: rotations k and P-k cover the same
   unordered shard pairs, so only k = 0..floor(P/2) are evaluated (cross
   rotations doubled; the antipodal rotation of an even ring already
-  contains both orderings across chips, so it is counted once) — the
-  same trick ``total_energy_bounded_flat`` plays over panel pairs;
-- every program is bounded: each rotation's per-chip sweep splits along
+  contains both orderings across devices, so it is counted once);
+- every program is bounded: each rotation's per-device sweep splits along
   the row axis into ``max_prog_pairs``-sized compile-once programs
-  (dynamic row offset, at most two distinct row-chunk shapes), so one
-  energy probe at bounded-program N never exceeds the execution-time
-  limit that motivated ``run_steps_multiprog``;
+  (dynamic row offset, at most two distinct row-chunk shapes);
 - per-program partials combine in float64 on host; zero-mass ghosts are
-  inert on both sides — the accuracy classes of ``total_energy_bounded``
-  flavor-for-flavor: the TPU flavor is the mask-free VMEM-tiled Pallas
-  pair-potential kernel (self total subtracted in closed-form f64,
-  ``ops/pe_pallas.py``'s documented class), the XLA flavor masks the
-  diagonal in place like ``models/energy.py::_pe_rows`` (self-pairs
-  exist only in rotation 0, where local row index == local column
-  index — no global ids needed).
-
-Tests run both flavors (the Pallas one in interpret mode).
+  inert on both sides, and self-pairs are masked in place like
+  ``models/energy.py::_pe_rows`` (they exist only in rotation 0, where
+  local row index == local column index — no global ids needed).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -52,7 +39,7 @@ from .mesh import SHARD_AXIS
 
 
 def _row_chunks(c: int, block_i: int, max_prog_pairs: float):
-    """Split a chip's c rows into (offset, rows) chunks of at most
+    """Split a device's c rows into (offset, rows) chunks of at most
     ``max_prog_pairs / c`` rows each, block_i-aligned, sizes differing by
     at most one block (so at most TWO compiled program shapes)."""
     blocks = c // block_i
@@ -70,8 +57,7 @@ def _row_chunks(c: int, block_i: int, max_prog_pairs: float):
 
 @functools.lru_cache(maxsize=8)
 def _energy_programs(mesh: Mesh, axis: str, c: int, eps2: float,
-                     block_i: int, block_u: int, row_sizes: tuple,
-                     use_pallas: bool, interpret: bool):
+                     row_sizes: tuple):
     """Compile-once jitted shard_map programs for one (mesh, geometry)."""
     p = mesh.shape[axis]
     S = P(axis)
@@ -87,107 +73,48 @@ def _energy_programs(mesh: Mesh, axis: str, c: int, eps2: float,
         return jnp.reshape(
             0.5 * jnp.sum(mass_l * jnp.sum(vel_l * vel_l, axis=-1)), (1,))
 
-    def m2_local(mass_l):
-        # Per-shard sum(m^2) for the Pallas flavor's self-pair
-        # subtraction — reduced ON the mesh (gathering the mass array to
-        # host at the 33.5M design point would ship ~134 MB through the
-        # relay per probe).  XLA's tree reduction keeps the f32 partial
-        # at few-ulp error; shards combine in f64 on host — the same
-        # class as the kernel sums the self total corrects.
-        return jnp.reshape(jnp.sum(mass_l * mass_l), (1,))
+    def rot_local(pos_v, mass_v):
+        return (jax.lax.ppermute(pos_v, axis, fwd),
+                jax.lax.ppermute(mass_v, axis, fwd))
 
-    progs = {"ke": sm(ke_local, (S, S), S), "m2": sm(m2_local, (S,), S)}
+    progs = {"ke": sm(ke_local, (S, S), S), "rot": sm(rot_local, (S, S),
+                                                       (S, S))}
+    # col must DIVIDE the shard size for the reshape below; c is only
+    # guaranteed to be a multiple of the row block, so take the gcd.
+    col = math.gcd(c, 2048)
 
-    if use_pallas:
-        # The kernel consumes a materialized (3, c) transposed stream +
-        # (1, c) mass row (the plain-streams operand rule, docs/PERF.md);
-        # prep materializes them ONCE, rotations ppermute them whole.
-        def prep_local(pos_l, mass_l):
-            return pos_l.T, mass_l[None, :]
+    def make_pe(rows, mask_diag):
+        def pe_local(pos_l, mass_l, pos_v, mass_v, off):
+            pos_r = jax.lax.dynamic_slice(pos_l, (off, 0), (rows, 3))
+            mass_r = jax.lax.dynamic_slice(mass_l, (off,), (rows,))
+            # Self-pairs masked IN PLACE: their m_i^2 rsqrt(eps2) value
+            # dwarfs physical pair terms at reference-range masses, so
+            # subtracting after accumulation cancels catastrophically in
+            # f32.  Per-row f32 carries, f64 host combination outside.
+            i_ids = off + jax.lax.broadcasted_iota(jnp.int32, (rows, 1), 0)
 
-        def rot_local(posT_v, mass_row_v):
-            return (jax.lax.ppermute(posT_v, axis, fwd),
-                    jax.lax.ppermute(mass_row_v, axis, fwd))
+            def body(carry, args):
+                pos_c, mass_c, cstart = args
+                r = pos_c[None, :, :] - pos_r[:, None, :]
+                d2 = jnp.sum(r * r, axis=-1) + eps2
+                inv = jax.lax.rsqrt(d2)
+                if mask_diag:
+                    j_ids = cstart + jax.lax.broadcasted_iota(
+                        jnp.int32, (1, col), 1)
+                    inv = jnp.where(j_ids == i_ids, 0.0, inv)
+                return carry + jnp.sum(mass_c[None, :] * inv, axis=1), None
 
-        progs["prep"] = sm(prep_local, (S, S),
-                           (P(None, axis), P(None, axis)))
-        progs["rot"] = sm(rot_local, (P(None, axis), P(None, axis)),
-                          (P(None, axis), P(None, axis)))
-
-        from ..ops.pe_pallas import _pe_rows_padded
-
-        def make_pe(rows):
-            def pe_local(pos_l, mass_l, posT_v, mass_row_v, off):
-                pos_r = jax.lax.dynamic_slice(pos_l, (off, 0), (rows, 3))
-                mass_r = jax.lax.dynamic_slice(mass_l, (off,), (rows,))
-                pe = _pe_rows_padded(pos_r, mass_r, posT_v, mass_row_v,
-                                     eps2, block_i, block_u, interpret)
-                return jnp.reshape(pe, (1,))
-            return sm(pe_local,
-                      (S, S, P(None, axis), P(None, axis), R), S)
-    else:
-        def prep_local(pos_v, mass_v):
-            return pos_v, mass_v
-
-        def rot_local(pos_v, mass_v):
-            return (jax.lax.ppermute(pos_v, axis, fwd),
-                    jax.lax.ppermute(mass_v, axis, fwd))
-
-        progs["prep"] = sm(prep_local, (S, S), (S, S))
-        progs["rot"] = sm(rot_local, (S, S), (S, S))
-
-        def make_pe(rows, mask_diag):
-            def pe_local(pos_l, mass_l, pos_v, mass_v, off):
-                pos_r = jax.lax.dynamic_slice(pos_l, (off, 0), (rows, 3))
-                mass_r = jax.lax.dynamic_slice(mass_l, (off,), (rows,))
-                # Exact-tier contract of models/energy.py::_pe_rows:
-                # self-pairs masked IN PLACE (their m_i^2 rsqrt(eps2)
-                # value dwarfs physical pair terms at reference-range
-                # masses — subtracting after accumulation cancels
-                # catastrophically in f32).  On the mesh, self-pairs
-                # exist only in rotation 0, where the visiting shard IS
-                # the local shard: local row index == local column
-                # index, no global ids needed.  Per-row f32 carries
-                # (row sums stay at pair-term magnitude), f64 host
-                # combination outside.  Column-chunked to bound the
-                # temporary.  col must DIVIDE the shard size (the
-                # reshape below is exact); c is only guaranteed to be a
-                # multiple of block_u, so take the gcd (review r4: a
-                # non-default block_u with c > 2048, c % 2048 != 0
-                # crashed the reshape).
-                import math
-                col = math.gcd(pos_v.shape[0], 2048)
-                i_ids = off + jax.lax.broadcasted_iota(
-                    jnp.int32, (rows, 1), 0)
-
-                def body(carry, args):
-                    pos_c, mass_c, cstart = args
-                    r = pos_c[None, :, :] - pos_r[:, None, :]
-                    d2 = jnp.sum(r * r, axis=-1) + eps2
-                    inv = jax.lax.rsqrt(d2)
-                    if mask_diag:
-                        j_ids = cstart + jax.lax.broadcasted_iota(
-                            jnp.int32, (1, col), 1)
-                        inv = jnp.where(j_ids == i_ids, 0.0, inv)
-                    return carry + jnp.sum(mass_c[None, :] * inv,
-                                           axis=1), None
-
-                cstarts = jnp.arange(0, pos_v.shape[0], col,
-                                     dtype=jnp.int32)
-                cols = (pos_v.reshape(-1, col, 3),
-                        mass_v.reshape(-1, col), cstarts)
-                row_tot, _ = jax.lax.scan(
-                    body, jnp.zeros((rows,), jnp.float32), cols)
-                return jnp.reshape(jnp.sum(mass_r * row_tot), (1,))
-            return sm(pe_local, (S, S, S, S, R), S)
+            cstarts = jnp.arange(0, pos_v.shape[0], col, dtype=jnp.int32)
+            cols = (pos_v.reshape(-1, col, 3), mass_v.reshape(-1, col),
+                    cstarts)
+            row_tot, _ = jax.lax.scan(
+                body, jnp.zeros((rows,), jnp.float32), cols)
+            return jnp.reshape(jnp.sum(mass_r * row_tot), (1,))
+        return sm(pe_local, (S, S, S, S, R), S)
 
     for rows in set(row_sizes):
-        if use_pallas:
-            progs[("pe", rows, True)] = progs[("pe", rows, False)] = \
-                make_pe(rows)
-        else:
-            progs[("pe", rows, True)] = make_pe(rows, mask_diag=True)
-            progs[("pe", rows, False)] = make_pe(rows, mask_diag=False)
+        progs[("pe", rows, True)] = make_pe(rows, mask_diag=True)
+        progs[("pe", rows, False)] = make_pe(rows, mask_diag=False)
     return progs
 
 
@@ -195,27 +122,24 @@ def total_energy_sharded(state, eps2: float, mesh: Mesh,
                          axis: str = SHARD_AXIS,
                          max_prog_pairs: float = 3e11,
                          block_i: int = 256, block_u: int = 2048,
-                         use_pallas: "bool | None" = None,
                          progress=None) -> float:
     """Total energy of a (possibly born-sharded) state, computed on the
-    mesh as bounded per-chip programs — no (N, 3) gather, no single-chip
+    mesh as bounded per-device programs — no (N, 3) gather, no single-device
     N^2 program.  Returns a host float64.
 
-    ``progress``: optional ``f(done, total, None)`` per PE program (the
-    bounded-dispatch heartbeat contract)."""
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    interpret = jax.default_backend() != "tpu"
-    assert block_u % block_i == 0
+    ``progress``: optional ``f(done, total, None)``, called after each
+    pair-potential program."""
+    if block_u % block_i:
+        raise ValueError(f"block_u={block_u} must be a multiple of "
+                         f"block_i={block_i}")
     p = mesh.shape[axis]
     n_real = state.n
     n_pad = round_up(n_real, p * block_u)
     state = pad_state_to(state, n_pad)
     c = n_pad // p
     chunks = _row_chunks(c, block_i, max_prog_pairs)
-    progs = _energy_programs(mesh, axis, c, float(eps2), block_i, block_u,
-                             tuple(s for _, s in chunks), use_pallas,
-                             interpret)
+    progs = _energy_programs(mesh, axis, c, float(eps2),
+                             tuple(s for _, s in chunks))
     sharding = NamedSharding(mesh, P(axis))
     pos = jax.device_put(state.pos, sharding)
     vel = jax.device_put(state.vel, sharding)
@@ -229,8 +153,8 @@ def total_energy_sharded(state, eps2: float, mesh: Mesh,
     if p % 2 == 0 and p > 1:
         plan += [(True, 1.0, False)]               # antipodal: both
         #                                            orderings already
-        #                                            present across chips
-    visiting = progs["prep"](pos, mass)
+        #                                            present across devices
+    visiting = (pos, mass)
     pe = 0.0
     done, total = 0, len(plan) * len(chunks)
     for rotate, w, is_self in plan:
@@ -246,10 +170,4 @@ def total_energy_sharded(state, eps2: float, mesh: Mesh,
             if progress is not None:
                 progress(done, total, None)
         pe += w * part
-    if use_pallas:
-        # The kernel is mask-free: subtract the self-pair total (the
-        # pe_pallas accuracy-class contract) — per-shard partials
-        # reduced on the mesh, combined in f64 on host (no mass gather).
-        m2 = float(np.asarray(progs["m2"](mass), dtype=np.float64).sum())
-        pe -= m2 / float(eps2) ** 0.5
     return ke - 0.5 * pe

@@ -2,11 +2,10 @@
 
 The reference is single-GPU, single-process (``cudaGetDeviceProperties(&prop,
 0)`` hard-codes device 0 everywhere — SURVEY.md section 2.3); its only
-"distribution" is intra-GPU.  The TPU rebuild's distributed backend is XLA
-collectives over ICI, expressed through ``jax.sharding.Mesh`` + ``shard_map``
-— the role NCCL/MPI would play in a multi-GPU port is played by compiled
-``lax.ppermute`` / ``psum`` (SURVEY.md section 5, 'Distributed communication
-backend').
+"distribution" is intra-GPU.  The rebuild's distributed backend is XLA
+collectives, expressed through ``jax.sharding.Mesh`` + ``shard_map``: compiled
+``lax.ppermute`` / ``all_gather`` / ``psum``, which XLA hands to NCCL on the
+GPU (SURVEY.md section 5, 'Distributed communication backend').
 """
 
 from __future__ import annotations
@@ -21,7 +20,8 @@ SHARD_AXIS = "shard"
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = SHARD_AXIS) -> Mesh:
-    """1-D mesh over the local devices (ICI ring on a real pod slice)."""
+    """1-D mesh over the local devices.  The cards of one host are joined
+    all to all, so the mesh follows the algorithm alone."""
     devices = jax.devices()
     if n_devices is not None:
         if n_devices > len(devices):

@@ -1,6 +1,6 @@
 """Device introspection — the analog of ``print_device_prop``
-(``utils.cpp:49-68``), reporting the TPU-relevant capability set instead of
-CUDA's."""
+(``utils.cpp:49-68``), reporting what JAX exposes of each device: kind,
+platform and device memory."""
 
 from __future__ import annotations
 
@@ -24,9 +24,6 @@ def device_info() -> "list[dict]":
                 info["hbm_in_use"] = stats["bytes_in_use"]
         except Exception:
             pass
-        for attr in ("coords", "core_on_chip"):
-            if hasattr(d, attr):
-                info[attr] = getattr(d, attr)
         infos.append(info)
     return infos
 
@@ -39,7 +36,5 @@ def print_device_info() -> None:
     for info in device_info():
         parts = [f"[{info['id']}] {info['device_kind']} ({info['platform']})"]
         if "hbm_bytes" in info:
-            parts.append(f"HBM {info['hbm_bytes'] / 2**30:.1f} GiB")
-        if "coords" in info:
-            parts.append(f"coords {info['coords']}")
+            parts.append(f"memory {info['hbm_bytes'] / 2**30:.1f} GiB")
         print("  " + "  ".join(parts))

@@ -97,7 +97,7 @@ class Mp4Writer:
         # 32-bit container fields (mdat size, stco offsets): reject the
         # frame that would overflow them NOW, not after hours of frames
         # have streamed (close() would otherwise die in struct.pack and
-        # leave a corrupt file; ADVICE r3).
+        # leave a corrupt file).
         end = self._f.tell() + len(data)
         if end - self._mdat_off >= 1 << 32 or end >= 1 << 32:
             raise OverflowError(
@@ -158,7 +158,7 @@ class Mp4Writer:
         if mdat_end - self._mdat_off >= 1 << 32:
             # add() pre-checks every frame, so this is a belt-and-braces
             # guard; raise the same typed error rather than an opaque
-            # struct.error from pack (ADVICE r3).
+            # struct.error from pack.
             f.close()
             raise OverflowError(
                 "MP4 mdat size exceeds 32 bits; file too large for this "

@@ -237,10 +237,10 @@ def test_run_traj_vel_analyze_cli(tmp_path, capsys):
     virial columns; leapfrog at small dt keeps |dE/E0| small."""
     from nbody_tpu.cli import main
     import json as _json
-    # 6 steps at N=64 = 24,576 whole-run interactions; a 1e4 cap forces
-    # the streamed TrajectoryWriter branch (whole_run > cap).
+    # A mesh run takes the streamed TrajectoryWriter branch.
     for extra, name in (([], "fused.npz"),
-                        (["--prog-cap", "1e4"], "streamed.npz")):
+                        (["--shards", "2", "--impl", "xla"],
+                         "streamed.npz")):
         path = str(tmp_path / name)
         rc = main(["run", "--n", "64", "--steps", "6", "--impl", "xla_nxn",
                    "--dt", "0.001", "--snap-every", "2", "--quiet",

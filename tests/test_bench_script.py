@@ -1,9 +1,8 @@
-"""bench.py (the driver's judged entry point) — retry and degradation.
+"""bench.py and the benchmark library (nbody_tpu/bench_lib.py).
 
 The reference ships no benchmark suite (README.md:15); bench.py is this
-rebuild's. The relay occasionally drops sessions mid-run
-(FailedPrecondition), so the script retries each tier once and reports
-the exact-tier headline even if the turbo rider fails.
+rebuild's.  It runs exactly what it is told: no retry, no shrinking N, no
+swapping the impl for the backend.
 """
 
 import json
@@ -15,70 +14,63 @@ import bench
 import nbody_tpu.bench_lib as bench_lib
 
 
-def _fake_result(value=123.0):
-    return {
-        "metric": "GInteractions/s", "value": value, "unit": "GInter/s",
-        "vs_baseline": value / 300.0, "ms_per_step": 1.0,
-        "ginter_min": value, "ginter_max": value, "spread_pct": 0.0,
-        "compile_plus_warmup_s": 0.1, "compile_s": 0.05,
-        "first_touch_s": 0.05, "finite": True,
-    }
+def _fake_result(value=123.0, **kw):
+    r = {"metric": "GInteractions/s", "value": value, "unit": "GInter/s",
+         "ms_per_step": 1.0, "finite": True}
+    r.update(kw)
+    return r
 
 
-def test_bench_retries_once_on_transient(monkeypatch, capsys):
+def test_bench_runs_small_n_from_env(monkeypatch, capsys):
+    """A real run at a small N passed through NBODY_BENCH_N, reporting the
+    device it ran on."""
+    monkeypatch.setenv("NBODY_BENCH_N", "256")
+    monkeypatch.setenv("NBODY_BENCH_STEPS", "2")
+    monkeypatch.setenv("NBODY_BENCH_TRIALS", "1")
+    monkeypatch.setenv("NBODY_BENCH_IMPL", "xla")
+    assert bench.main() == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["n_bodies"] == 256 and rec["steps"] == 2
+    assert rec["impl"] == "xla" and rec["finite"]
+    assert rec["backend"] == jax.default_backend()
+    assert rec["device_kind"] == jax.devices()[0].device_kind
+    assert "vs_baseline" not in rec
+
+
+@pytest.mark.parametrize("n,impl", [(1048576, "auto"), (3000, "pallas"),
+                                    (64, "xla_nxn")])
+def test_bench_passes_n_and_impl_through(monkeypatch, capsys, n, impl):
+    """bench.py never shrinks N or swaps the impl for the backend."""
+    seen = {}
+
+    def fake(**kw):
+        seen.update(kw)
+        return _fake_result()
+
+    monkeypatch.setattr(bench_lib, "run_benchmark", fake)
+    monkeypatch.setenv("NBODY_BENCH_N", str(n))
+    monkeypatch.setenv("NBODY_BENCH_IMPL", impl)
+    assert bench.main() == 0
+    assert seen["n"] == n and seen["impl"] == impl
+
+
+def test_bench_does_not_retry(monkeypatch):
+    """A failure surfaces at once: no second attempt hides it."""
     calls = []
 
     def flaky(**kw):
         calls.append(kw["impl"])
-        if len(calls) == 1:
-            raise RuntimeError("FailedPrecondition: session dropped")
-        return _fake_result()
+        raise RuntimeError("device failure")
 
     monkeypatch.setattr(bench_lib, "run_benchmark", flaky)
-    monkeypatch.setenv("NBODY_BENCH_TURBO", "0")
-    assert bench.main() == 0
-    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert rec["value"] == 123.0
-    assert len(calls) == 2          # failed once, retried, succeeded
+    with pytest.raises(RuntimeError, match="device failure"):
+        bench.main()
+    assert len(calls) == 1
 
 
-def test_bench_reports_headline_when_turbo_dies(monkeypatch, capsys):
-    def tiered(**kw):
-        if kw["impl"] == "pallas_sym_turbo":
-            raise RuntimeError("FailedPrecondition: session dropped")
-        return _fake_result(307.0)
-
-    monkeypatch.setattr(bench_lib, "run_benchmark", tiered)
-    # Force the TPU branch so the turbo rider is attempted on CPU CI.
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    monkeypatch.setenv("NBODY_BENCH_TURBO", "1")
-    monkeypatch.setenv("NBODY_BENCH_REFPOINT", "0")
-    assert bench.main() == 0
-    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert rec["value"] == 307.0
-    assert "turbo" not in rec
-    assert "FailedPrecondition" in rec["turbo_error"]
-
-
-def test_bench_turbo_rider_rides_along(monkeypatch, capsys):
-    def tiered(**kw):
-        return _fake_result(
-            410.0 if kw["impl"] == "pallas_sym_turbo" else 307.0)
-
-    monkeypatch.setattr(bench_lib, "run_benchmark", tiered)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    monkeypatch.setenv("NBODY_BENCH_TURBO", "1")
-    monkeypatch.setenv("NBODY_BENCH_REFPOINT", "0")
-    assert bench.main() == 0
-    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert rec["value"] == 307.0
-    assert rec["turbo"]["value"] == 410.0
-
-
-def test_warmup_default_matches_steps_on_fused_path(monkeypatch):
-    """Fused routing embeds n_steps in the compiled program: the default
-    warmup must reuse the trials' step count so one executable serves
-    both (cold relay sessions pay minutes per extra program)."""
+def test_warmup_default_matches_steps(monkeypatch):
+    """The compiled program embeds n_steps: the default warmup reuses the
+    trials' step count so one executable serves both."""
     calls = []
     real = bench_lib.run_steps
 
@@ -92,44 +84,15 @@ def test_warmup_default_matches_steps_on_fused_path(monkeypatch):
     assert all(k == 4 for k in calls)
 
 
-def test_warmup_default_is_one_step_on_multiprog_path(monkeypatch):
-    """Multiprog/flat routing compiles step-count-independent programs:
-    warming with `steps` would burn device time for nothing (hours at
-    33.5M; review r4) — the default must be ONE step there."""
-    import nbody_tpu.ops.step as step_mod
-    calls = []
-    real = step_mod.run_steps_multiprog
-
-    def spy(state, cfg, k, impl=None):
-        calls.append(k)
-        return real(state, cfg, k, impl=impl)
-
-    monkeypatch.setattr(step_mod, "run_steps_multiprog", spy)
-    bench_lib.run_benchmark(n=512, steps=3, impl="pallas_sym", trials=1,
-                            block_i=64, block_u=128, prog_cap=1e9)
-    assert calls[0] == 1                  # warmup: one step warms it all
-    assert calls[1:] == [3]               # the timed trial
-
-
-def test_bench_does_not_retry_deterministic_misuse(monkeypatch, capsys):
-    calls = []
-
-    def misuse(**kw):
-        calls.append(kw["impl"])
-        raise ValueError("unknown impl 'typo'")
-
-    monkeypatch.setattr(bench_lib, "run_benchmark", misuse)
-    monkeypatch.setenv("NBODY_BENCH_TURBO", "0")
-    with pytest.raises(ValueError):
-        bench.main()
-    assert len(calls) == 1                # no pointless multi-minute rerun
+def test_aot_compile_reported_apart(capsys):
+    r = bench_lib.run_benchmark(n=128, steps=2, impl="xla_nxn", trials=1)
+    assert r["compile_s"] is not None and r["compile_s"] >= 0
+    assert r["warmup_s"] >= 0
 
 
 def test_bench_auto_steps_scale_with_n(monkeypatch):
-    """steps=None auto-sizes trials by target DURATION so small/mid-N
-    runs measure the kernel, not dispatch latency (docs/PERF.md round 6:
-    10-step trials at 65536 read 222-273 where 100-step trials hold
-    290.9 at 0.14% spread)."""
+    """steps=None sizes trials by target DURATION so small-N runs measure
+    the sweep, not dispatch latency."""
     seen = {}
     real = bench_lib.run_steps
 
@@ -139,14 +102,18 @@ def test_bench_auto_steps_scale_with_n(monkeypatch):
 
     monkeypatch.setattr(bench_lib, "run_steps", spy)
     r = bench_lib.run_benchmark(n=256, steps=None, impl="xla", trials=1)
-    assert r["steps"] == 100             # CPU branch, tiny N hits its cap
-    assert seen["k"] == 100
-    # TPU branch arithmetic (no device work): ~1.5 s at 300 G/s.
-    tpu_auto = lambda n: int(min(8000, max(10, 1.5 * 300e9 // (n * n))))
-    assert tpu_auto(1048576) == 10       # 1M+: one step exceeds target
-    assert tpu_auto(65536) == 104        # the 65k fix
-    assert tpu_auto(8192) == 6705
-    assert tpu_auto(4096) == 8000        # cap
+    assert r["steps"] == bench_lib.auto_steps(256) == 8000
+    assert seen.get("k", r["steps"]) == r["steps"]
+
+
+@pytest.mark.parametrize("backend,n,steps", [
+    ("cpu", 256, 8000), ("cpu", 4096, 59), ("cpu", 1 << 20, 5),
+    ("gpu", 8192, 7450), ("gpu", 65536, 116), ("gpu", 1 << 20, 5),
+    ("gpu", 1024, 8000),
+])
+def test_auto_steps_table(monkeypatch, backend, n, steps):
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    assert bench_lib.auto_steps(n) == steps
 
 
 def test_cli_bench_steps_explicit_vs_auto(monkeypatch, capsys):
@@ -164,35 +131,3 @@ def test_cli_bench_steps_explicit_vs_auto(monkeypatch, capsys):
     assert got["steps"] is None
     cli.main(["bench", "--n", "512", "--steps", "7"])
     assert got["steps"] == 7
-
-
-def test_bench_ref_design_point_rider(monkeypatch, capsys):
-    """The N=8192 reference-design-point rider rides along under its own
-    key, and its failure degrades gracefully like the turbo rider's."""
-    def tiered(**kw):
-        r = _fake_result(216.0 if kw["n"] == 8192 else 307.0)
-        r.update({"n_bodies": kw["n"], "steps": 400, "impl": "pallas_sym2",
-                  "resident": kw["n"] == 8192})
-        return r
-
-    monkeypatch.setattr(bench_lib, "run_benchmark", tiered)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    monkeypatch.setenv("NBODY_BENCH_TURBO", "0")
-    monkeypatch.setenv("NBODY_BENCH_REFPOINT", "1")
-    assert bench.main() == 0
-    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert rec["value"] == 307.0
-    assert rec["ref_design_point"]["value"] == 216.0
-    assert rec["ref_design_point"]["resident"] is True
-
-    def dies(**kw):
-        if kw["n"] == 8192:
-            raise RuntimeError("FailedPrecondition: session dropped")
-        return tiered(**kw)
-
-    monkeypatch.setattr(bench_lib, "run_benchmark", dies)
-    assert bench.main() == 0
-    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert rec["value"] == 307.0
-    assert "ref_design_point" not in rec
-    assert "FailedPrecondition" in rec["ref_design_point_error"]

@@ -75,18 +75,18 @@ def test_validate_analytic(capsys):
 
 
 def test_validate_default_horizon():
-    """Out-of-box `nbody validate` uses the measured CLEAN horizon (10
-    steps: 0 bad components on the real chip at strict max-bad-frac 0);
-    at 20 steps chaotic amplification fails ANY implementation pair."""
+    """Out-of-box `nbody validate` uses the CLEAN horizon (10 steps, at
+    strict max-bad-frac 0); at 20 steps chaotic amplification fails ANY
+    implementation pair."""
     from nbody_tpu.cli import build_parser
     args = build_parser().parse_args(["validate"])
     assert args.steps == 10 and args.max_bad_frac == 0.0
 
 
 def test_validate_long_horizon_default():
-    """The long-horizon phase is the DEFAULT story (VERDICT r3 #5): 1,000
+    """The long-horizon phase is the DEFAULT story: 1,000
     lock-step steps — the reference harness's own count
-    (validation.cpp:65) — with the energy gate at BASELINE's 1e-3."""
+    (validation.cpp:65) — with the energy gate at 1e-3."""
     from nbody_tpu.cli import build_parser
     args = build_parser().parse_args(["validate"])
     assert args.long_steps == 1000
@@ -96,7 +96,7 @@ def test_validate_long_horizon_default():
 
 def test_validate_long_horizon_chaos_dominated(capsys):
     """At the reference's own parameters the f64 oracle itself violates
-    conservation (BASELINE.md settlement): the energy drift is reported,
+    conservation: the energy drift is reported,
     not gated, and the exactly-conserved invariants gate instead."""
     rc = main(["validate", "--n", "128", "--impl", "xla_nxn"])
     out = capsys.readouterr().out
@@ -130,9 +130,8 @@ def test_validate_long_steps_zero_disables(capsys):
 
 def test_validate_shards(capsys):
     """`nbody validate --shards P` runs the oracle gates through the
-    PRODUCTION sharded path (run_steps_sharded + prime_kdk_sharded) —
-    VERDICT r4 #4: a pod user can drive validation on the mesh they'll
-    run on.  Long horizon kept short (mesh geometry, conftest envelope)."""
+    PRODUCTION sharded path (run_steps_sharded + prime_kdk_sharded), so
+    a user can drive validation on the mesh they'll run on.  Long horizon kept short (mesh geometry, conftest envelope)."""
     rc = main(["validate", "--n", "256", "--steps", "5", "--impl", "xla",
                "--shards", "8", "--long-steps", "20"])
     out = capsys.readouterr().out
@@ -140,15 +139,13 @@ def test_validate_shards(capsys):
     assert "[long]" in out and "Verification PASSED" in out
 
 
-def test_validate_shards_multiprog(capsys):
-    """A binding --prog-cap routes validate's device runs through the
-    bounded mesh dispatcher (run_steps_sharded_multiprog) — the same
-    routing Simulation uses (tiny geometry: interpret-mode sym kernels
-    between collectives, see conftest envelope)."""
+def test_validate_shards_multiprog(capsys, kernel_interpret):
+    """validate --shards with the tiled kernel as each device's local
+    sweep of the ring (tiny geometry: interpret-mode kernel between
+    collectives, see conftest envelope)."""
     rc = main(["validate", "--n", "256", "--steps", "3", "--impl",
-               "pallas_sym", "--shards", "4", "--block-i", "8",
-               "--block-j", "128", "--block-u", "128", "--prog-cap", "1e4",
-               "--long-steps", "0"])
+               "pallas", "--shards", "4", "--block-i", "16",
+               "--block-j", "32", "--long-steps", "0"])
     out = capsys.readouterr().out
     assert rc == 0
     assert "Verification PASSED" in out
@@ -161,7 +158,7 @@ def test_validate_rejects_shards_with_analytic(capsys):
 
 def test_resume_keeps_saved_physics(tmp_path):
     """Resuming without re-passing --dt/--eps2 must keep the checkpoint's
-    physics; explicitly-passed flags still override (ADVICE round 1)."""
+    physics; explicitly-passed flags still override."""
     from nbody_tpu.models.simulation import Simulation
     ck = str(tmp_path / "ck.npz")
     rc = main(["run", "--n", "96", "--steps", "4", "--impl", "xla_nxn",
@@ -205,20 +202,7 @@ def test_bench_json(capsys):
     rec = json.loads(line)
     assert rec["metric"] == "GInteractions/s"
     assert rec["value"] > 0 and rec["finite"]
-    assert "vs_baseline" in rec
-
-
-def test_bench_forwards_flat_state(capsys):
-    """`nbody bench --flat-state on` must reach run_benchmark (review r4:
-    the flag was registered but silently dropped); the result reports the
-    routing under "flat"."""
-    rc = main(["bench", "--n", "256", "--steps", "2", "--impl",
-               "pallas_sym", "--block-i", "8", "--block-j", "128",
-               "--block-u", "128", "--warmup", "1", "--trials", "1",
-               "--flat-state", "on"])
-    assert rc == 0
-    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert rec["flat"] is True and rec["finite"]
+    assert "vs_baseline" not in rec
 
 
 def test_info(capsys):
@@ -324,14 +308,13 @@ def test_sharded_run(capsys):
     assert rc == 0
 
 
-def test_run_save_trajectory_sharded(tmp_path):
-    """--shards + --save-trajectory must route through the mesh (review
-    r4: the trajectory advance closure silently dropped the mesh); the
+def test_run_save_trajectory_sharded(tmp_path, kernel_interpret):
+    """--shards + --save-trajectory must route through the mesh; the
     sharded capture must match the single-device one."""
     traj_s = str(tmp_path / "sharded.npz")
     traj_1 = str(tmp_path / "single.npz")
     base = ["run", "--n", "64", "--steps", "6", "--impl", "pallas",
-            "--block-i", "8", "--block-j", "128",
+            "--block-i", "8", "--block-j", "16",
             "--save-trajectory", None, "--snap-every", "2", "--quiet"]
     args = list(base)
     args[args.index(None)] = traj_s
@@ -348,21 +331,10 @@ def test_run_save_trajectory_sharded(tmp_path):
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-1)
 
 
-def test_run_flat_state_with_shards_rejected(capsys):
-    """Explicit --flat-state with --shards must error with the design
-    rationale (flat + mesh is unnecessary: the tiled-copy wall applies
-    per chip), not silently run either layout."""
-    import pytest
-    with pytest.raises(ValueError, match="unnecessary by design"):
-        main(["run", "--n", "256", "--steps", "1", "--impl", "pallas_sym",
-              "--block-i", "8", "--block-j", "32", "--block-u", "32",
-              "--flat-state", "on", "--shards", "2", "--quiet"])
-
-
 def test_bench_value_matches_ms_per_step(capsys):
     """The headline value and ms_per_step must describe the SAME trial:
-    n^2*steps/time must round-trip (review r4: independent medians of two
-    sorted lists disagree at even trial counts)."""
+    n^2*steps/time must round-trip (independent medians of two sorted
+    lists disagree at even trial counts)."""
     rc = main(["bench", "--n", "256", "--steps", "2", "--impl", "xla",
                "--warmup", "1", "--trials", "2"])
     assert rc == 0
@@ -377,7 +349,7 @@ def test_validate_long_phase_honors_explicit_numpy_oracle(capsys, monkeypatch):
     """An explicit `--oracle numpy` pins the LONG-HORIZON phase to the
     numpy twin even when the native build is available — a user
     cross-checking a suspect native build must not have the gates
-    silently validated against it (review r4).  Without the flag the
+    silently validated against it.  Without the flag the
     phase auto-prefers native (speed)."""
     import numpy as np
     import nbody_tpu.oracle.native as nat

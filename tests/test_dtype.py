@@ -1,7 +1,7 @@
 """End-to-end dtype support (float64 / bfloat16 state).
 
 The reference is float32-only (float4 state); the rebuild adds float64 —
-the precision control for the drift-gate analysis (BASELINE.md) — and
+the precision control for the drift-gate analysis — and
 bfloat16 storage.  Backend matrix (README): the XLA force paths follow the
 input dtype; Pallas kernels are float32-only and raise a clear error.
 """
@@ -84,35 +84,13 @@ def test_auto_impl_routes_non_f32_to_xla():
         == "xla_nxn"
 
 
-def test_auto_impl_prefers_sym_on_tpu(monkeypatch):
+def test_auto_impl_prefers_kernel_on_gpu(monkeypatch):
     import jax
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert resolve_impl(SimConfig(n_bodies=65536)) == "pallas_sym2"
-    # sym2 wins down to 3072 under the fair long-run protocol
-    # (scripts/r6_fair.py: 176.8 vs 89.3 at 3072); in (2048, 3072)
-    # reference-scheme runs resolve to sym2 to ride the VMEM-resident
-    # window (ops/resident.py); at N <= 2048 the one-sided kernel wins
-    # (123.3 vs 81.9 at 2048) and resident is parity, so auto stays put.
-    assert resolve_impl(SimConfig(n_bodies=8192)) == "pallas_sym2"
-    assert resolve_impl(SimConfig(n_bodies=4096)) == "pallas_sym2"
-    assert resolve_impl(SimConfig(n_bodies=3072)) == "pallas_sym2"
-    assert resolve_impl(
-        SimConfig(n_bodies=3072, resident=False)) == "pallas_sym2"
-    assert resolve_impl(
-        SimConfig(n_bodies=3072, integrator="yoshida4")) == "pallas_sym2"
-    assert resolve_impl(SimConfig(n_bodies=2560)) == "pallas_sym2"
-    assert resolve_impl(SimConfig(n_bodies=2560, resident=False)) == "pallas"
-    # KDK-composed schemes don't redirect below 3072 (their resident
-    # window opens above it; per-step sym2 there is unmeasured/losing).
-    assert resolve_impl(
-        SimConfig(n_bodies=2560, integrator="yoshida4")) == "pallas"
-    assert resolve_impl(SimConfig(n_bodies=2048)) == "pallas"
-    # Sharded runs preempt the resident mode, so the 2048<N<3072 redirect
-    # (which exists only to reach the resident window) must not fire for
-    # them — per-step sym2 there loses to the one-sided kernel (ADVICE r3).
-    assert resolve_impl(SimConfig(n_bodies=2560), sharded=True) == "pallas"
-    assert resolve_impl(SimConfig(n_bodies=3072), sharded=True) \
-        == "pallas_sym2"
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert resolve_impl(SimConfig(n_bodies=65536)) == "pallas"
+    assert resolve_impl(SimConfig(n_bodies=8192)) == "pallas"
+    # Non-f32 state never reaches the float32-only kernel.
+    assert resolve_impl(SimConfig(n_bodies=8192, dtype="float64")) == "xla"
 
 
 def test_pallas_rejects_non_f32():
@@ -120,8 +98,6 @@ def test_pallas_rejects_non_f32():
     state = init_state(cfg)
     with pytest.raises(ValueError, match="float32-only"):
         compute_forces(state.pos, state.mass, cfg, impl="pallas")
-    with pytest.raises(ValueError, match="float32-only"):
-        compute_forces(state.pos, state.mass, cfg, impl="pallas_sym")
 
 
 def test_cli_dtype_f64(tmp_path, capsys, x64):

@@ -2,6 +2,7 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from nbody_tpu import SimConfig, SimState, run_steps
 from nbody_tpu.models.energy import (
@@ -86,22 +87,21 @@ def test_total_energy_bounded_matches_host_f64():
     assert abs(delegated - exact) / abs(exact) < 1e-5
 
 
-def test_pe_pallas_matches_oracle():
-    """The mask-free Pallas pair-potential kernel (self terms included,
-    subtracted in closed form) must match the host-f64 potential."""
+@pytest.mark.parametrize("row_chunk,col_chunk", [(1024, 2048), (777, 512),
+                                                 (None, 2048)])
+def test_total_energy_bounded_chunkings(row_chunk, col_chunk):
+    """Row and column chunkings, ragged ones included, agree with the host
+    f64 sweep."""
     from nbody_tpu.models.energy import energy_f64, total_energy_bounded
-    n = 3000
+    n = 1500
     pos, vel, mass = make_small_system(n, seed=93)
-    state = SimState(pos=jnp.asarray(pos), vel=jnp.asarray(vel),
+    state = SimState(pos=jnp.asarray(pos), vel=jnp.asarray(vel) + 1.0,
                      acc=jnp.zeros((n, 3), jnp.float32),
                      mass=jnp.asarray(mass))
     exact = energy_f64(state, EPS2)
-    via_pallas = total_energy_bounded(state, EPS2, row_chunk=1024,
-                                      use_pallas=True)
-    # Accuracy class scales with self/pair-sum ratio (see pe_pallas
-    # docstring): ~3e-5 at this tiny N, ~3e-7 at the N >= 1M regime the
-    # fast tier serves; both far inside the 1e-3-scale drift gates.
-    assert abs(via_pallas - exact) / abs(exact) < 2e-4
+    bounded = total_energy_bounded(state, EPS2, row_chunk=row_chunk,
+                                   col_chunk=col_chunk)
+    assert abs(bounded - exact) / abs(exact) < 1e-5
 
 
 # ---- sharded energy (parallel/energy.py): track_energy on a mesh ----
@@ -114,39 +114,30 @@ def _mesh_state(n, seed=70):
                     mass=_jnp.asarray(mass))
 
 
-def test_total_energy_sharded_matches_host_all_parities():
-    """The mesh energy sweep (halved ring, mask-free pair math, f64 host
-    combination) matches the host-f64 oracle on odd, even, and
-    single-device meshes, in BOTH flavors (XLA local sweep; the Pallas
-    pair-potential kernel in interpret mode)."""
+@pytest.mark.parametrize("p", [1, 2, 5, 8])
+def test_total_energy_sharded_matches_host_all_parities(p):
+    """The mesh energy sweep (halved ring, diagonal masked in place, f64
+    host combination) matches the host-f64 oracle on odd, even, and
+    single-device meshes."""
     from nbody_tpu.parallel.energy import total_energy_sharded
     from nbody_tpu.parallel.mesh import make_mesh
     state = _mesh_state(300)
     e_host = energy_f64(state, EPS2)
-    for p in (1, 2, 5, 8):
-        mesh = make_mesh(p)
-        # XLA flavor masks the diagonal in place: exact tier (~1e-8
-        # measured).  Pallas flavor is the mask-free kernel class
-        # (pe_pallas docstring): self/pair ratio ~ rsqrt(eps2)·d/N —
-        # ~4e-4 measured at this tiny N, ~3e-7 at the N >= 1M regime
-        # the fast tier serves.
-        for use_pallas, rtol in ((False, 1e-5), (True, 2e-3)):
-            e = total_energy_sharded(state, EPS2, mesh, block_i=8,
-                                     block_u=64, use_pallas=use_pallas)
-            np.testing.assert_allclose(e, e_host, rtol=rtol,
-                                       err_msg=f"p={p} pallas={use_pallas}")
+    e = total_energy_sharded(state, EPS2, make_mesh(p), block_i=8,
+                             block_u=64)
+    np.testing.assert_allclose(e, e_host, rtol=1e-5, err_msg=f"p={p}")
 
 
 def test_total_energy_sharded_nondivisor_col_chunk():
     """c > 2048 with c % 2048 != 0 (block_u=1024, N=6144 on 2 shards ->
-    c=3072) must not crash the XLA flavor's column reshape (review r4:
-    the col chunk must divide the shard size)."""
+    c=3072) must not crash the column reshape (the col chunk must divide
+    the shard size)."""
     from nbody_tpu.parallel.energy import total_energy_sharded
     from nbody_tpu.parallel.mesh import make_mesh
     state = _mesh_state(6144, seed=73)
     e_host = energy_f64(state, EPS2)
     e = total_energy_sharded(state, EPS2, make_mesh(2), block_i=256,
-                             block_u=1024, use_pallas=False)
+                             block_u=1024)
     np.testing.assert_allclose(e, e_host, rtol=1e-5)
 
 
@@ -158,11 +149,10 @@ def test_total_energy_sharded_bounded_split():
     from nbody_tpu.parallel.mesh import make_mesh
     state = _mesh_state(300, seed=71)
     mesh = make_mesh(4)
-    e1 = total_energy_sharded(state, EPS2, mesh, block_i=8, block_u=64,
-                              use_pallas=False)
+    e1 = total_energy_sharded(state, EPS2, mesh, block_i=8, block_u=64)
     calls = []
     e2 = total_energy_sharded(state, EPS2, mesh, block_i=8, block_u=64,
-                              use_pallas=False, max_prog_pairs=2000,
+                              max_prog_pairs=2000,
                               progress=lambda d, t, a: calls.append((d, t)))
     assert calls and calls[-1][0] == calls[-1][1] >= 8
     np.testing.assert_allclose(e2, e1, rtol=1e-6)
@@ -170,8 +160,7 @@ def test_total_energy_sharded_bounded_split():
 
 def test_simulation_mesh_track_energy_routes_sharded(monkeypatch):
     """Past the host wall, track_energy on a mesh run must compute on the
-    mesh (parallel/energy.py) — never gather to host f64 (the (N, 3)
-    wall at flat-mode N)."""
+    mesh (parallel/energy.py) — never gather the state to host f64."""
     import nbody_tpu.models.simulation as simmod
     import nbody_tpu.parallel.energy as penergy
     from nbody_tpu.models.simulation import Simulation

@@ -109,12 +109,12 @@ def test_dispatch_auto():
 
 
 def test_forces_chunked_matmul_precision_is_highest():
-    """The MXU contraction must carry Precision.HIGHEST: on TPU the
-    DEFAULT dot truncates inputs to bfloat16 (preferred_element_type only
-    widens the accumulator), which measured badfrac 24% vs the f64 oracle
-    at N=262144 on v5e — silently demoting the exact-class XLA backend
-    below the turbo tier.  CPU runs DEFAULT in full f32, so only this
-    lowering check (not a numeric gate) can catch a regression in CI."""
+    """Any contraction in forces_chunked must carry Precision.HIGHEST: a
+    DEFAULT float32 dot may run in reduced precision (TF32 on the GPU's
+    tensor cores), which would silently demote the exact-class XLA
+    backend.  CPU runs DEFAULT in full f32, so only this lowering check
+    (not a numeric gate) can catch a regression in CI.  (The direct-form
+    sum lowers to no dot at all.)"""
     import functools
     import jax
     import jax.numpy as jnp
@@ -123,5 +123,18 @@ def test_forces_chunked_matmul_precision_is_highest():
                                     chunk=128)).lower(
         jnp.ones((256, 3)), jnp.ones((256,)))
     dots = [l for l in low.as_text().splitlines() if "stablehlo.dot" in l]
-    assert dots, "forces_chunked no longer lowers to a dot_general?"
     assert all("HIGHEST" in l for l in dots), dots
+
+
+@pytest.mark.parametrize("seed", [8191, 3, 11])
+def test_chunked_close_pair_stays_in_the_1pct_gate(seed):
+    """A close pair far from the origin, offset along x only: the
+    direct-form sum keeps every component inside the 1% gate against the
+    f64 oracle.  (A matmul decomposition cancels |y_i| * rowsum(f) in the
+    pair's y and z components there, and fails the gate.)"""
+    pos, _, mass = make_small_system(512, seed=seed)
+    pos[1] = pos[0] + np.float32([50.0, 0.0, 0.0])
+    acc = np.asarray(forces_chunked(jnp.asarray(pos), jnp.asarray(mass),
+                                    EPS2, chunk=128))
+    assert_matches_oracle(acc, oracle_forces(pos, mass, EPS2),
+                          "acc(chunked close pair)", abs_tol=1e-6)

@@ -1,11 +1,11 @@
-"""CI mirror of the driver gates in ``__graft_entry__`` so the driver's
-dryrun and the test suite cannot drift apart (VERDICT round 2 #5): the
-same code paths run here on the 8-virtual-device CPU mesh."""
+"""CI mirror of the integration hooks in ``__graft_entry__``, so the hooks
+and the test suite cannot drift apart: the same code paths run here on the
+8-virtual-device CPU mesh."""
 
 import sys
 import os
 
-import conftest  # noqa: F401  (forces CPU backend, 8 virtual devices)
+import conftest  # noqa: F401  (CPU backend, 8 virtual devices)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
 

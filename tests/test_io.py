@@ -79,7 +79,7 @@ def test_run_logger(tmp_path):
 def test_checkpoint_meta_reads_header_only(tmp_path, monkeypatch):
     """load_checkpoint_meta must take n_bodies from the npy HEADER of the
     mass entry — decompressing the array itself is ~134 MB at 33.5M
-    bodies and runs twice per resume (review r4)."""
+    bodies and runs twice per resume."""
     from nbody_tpu.io.checkpoint import load_checkpoint_meta, save_checkpoint
     state = make_state(4096, seed=31)
     cfg = SimConfig(n_bodies=4096, impl="xla")
@@ -149,7 +149,7 @@ def test_trajectory_cfg_cross_version_tolerant(tmp_path):
     """A trajectory whose embedded config carries unknown fields (written
     by a different SimConfig version) still yields its cfg — losing it
     silently would make the analysis energy series use the DEFAULT eps2
-    (review r4).  Same known-field filter as load_checkpoint."""
+   .  Same known-field filter as load_checkpoint."""
     import dataclasses
     import json as _json
     import zipfile
@@ -165,3 +165,37 @@ def test_trajectory_cfg_cross_version_tolerant(tmp_path):
                                        dtype=np.uint8))
     s, v, m, every, cfg = load_trajectory_full(p)
     assert cfg is not None and cfg.eps2 == 0.125
+
+
+def test_checkpoint_from_older_config_layout_loads(tmp_path):
+    """A checkpoint whose embedded config has fields this version no
+    longer knows (an older layout) still loads and resumes: the unknown
+    fields are dropped, and the device tuning (impl, blocks, chunk) falls
+    back to this version's defaults while the physics is kept."""
+    import dataclasses
+    from nbody_tpu.io.checkpoint import load_checkpoint_meta
+    from nbody_tpu.models.simulation import Simulation
+    n = 64
+    raw = dataclasses.asdict(SimConfig(n_bodies=n, dt=0.05, eps2=0.01,
+                                       seed=3))
+    raw.update(impl="pallas_sym2", block_i=512, block_j=2048, chunk=4096,
+               block_u=1536, panel_nb=None, prog_cap=None,
+               flat_state=None, resident=None)
+    p = str(tmp_path / "old.npz")
+    state = make_state(n, seed=34)
+    save_checkpoint(p, state, step=9)
+    with np.load(p) as z:
+        payload = dict(z)
+    payload["config_json"] = np.frombuffer(json.dumps(raw).encode(),
+                                           dtype=np.uint8)
+    np.savez(p, **payload)
+    step, cfg, n_saved = load_checkpoint_meta(p)
+    fresh = SimConfig()
+    assert (step, n_saved) == (9, n)
+    assert (cfg.dt, cfg.eps2, cfg.seed, cfg.n_bodies) == (0.05, 0.01, 3, n)
+    assert (cfg.impl, cfg.block_i, cfg.block_j, cfg.chunk) == (
+        fresh.impl, fresh.block_i, fresh.block_j, fresh.chunk)
+    sim = Simulation.resume(p)
+    assert sim.step_count == 9 and sim.cfg == cfg
+    sim.run(n_steps=2, log_every=0)
+    assert sim.step_count == 11

@@ -159,7 +159,7 @@ def test_cli_run_viz_mp4(tmp_path):
 def test_mp4_overflow_guard_fails_fast(tmp_path):
     """The 32-bit mdat/stco fields must reject the overflowing frame at
     add() time (before hours of frames stream), with a typed error rather
-    than an opaque struct.error at close() (ADVICE r3)."""
+    than an opaque struct.error at close()."""
     pytest.importorskip("PIL")
     from nbody_tpu.viz.mp4 import Mp4Writer
     frame = np.zeros((8, 8, 3), np.uint8)

@@ -1,7 +1,7 @@
-"""Multi-chip ring / all-gather sharded path, on 8 virtual CPU devices.
+"""Multi-device ring / all-gather sharded path, on 8 virtual CPU devices.
 
 The reference has no distributed story (single GPU, SURVEY.md section 2.3);
-this is the rebuild's ICI scaling layer.  Correctness bar: the sharded result
+this is the rebuild's mesh scaling layer.  Correctness bar: the sharded result
 must match the single-device path and the oracle.
 """
 
@@ -58,7 +58,7 @@ def test_sharded_matches_oracle():
 
 
 def test_sharded_kdk_matches_oracle():
-    """run_steps_sharded must honor cfg.integrator (ADVICE round 1): a KDK
+    """run_steps_sharded must honor cfg.integrator: a KDK
     config runs KDK on the sharded path, matching the KDK oracle twin."""
     from nbody_tpu.ops.step import prime_kdk
     n, steps = 512, 15
@@ -102,109 +102,35 @@ def test_sharded_with_padding():
     assert_matches_oracle(np.asarray(out.pos), rpos, "pos(pad)", abs_tol=1.0)
 
 
-def test_sharded_pallas_interpret():
-    """The Pallas rect kernel inside shard_map (interpret mode on CPU)."""
-    n, steps = 1024, 3
-    state, pos, vel, mass = make_state(n, seed=23)
-    cfg = SimConfig(n_bodies=n, impl="pallas", block_i=8, block_j=128)
-    mesh = make_mesh()
-    out = run_steps_sharded(state, cfg, mesh, steps, impl="pallas",
-                            comm="ring")
-    rpos, _, _ = oracle_run(pos, vel, mass, cfg.eps2, cfg.dt, steps)
-    assert_matches_oracle(np.asarray(out.pos), rpos, "pos(ring-pallas)",
-                          abs_tol=1.0)
-
-
-@pytest.mark.parametrize("impl,comm", [
-    ("pallas_turbo", "ring"),
-    ("pallas_turbo", "allgather"),
-    ("pallas_mxu", "ring"),
-    ("pallas_fast", "ring"),
-])
-def test_sharded_masked_variants_interpret(impl, comm):
-    """Round-2 unlock (VERDICT task 2): the masked mxu/fast/turbo kernels
-    run inside the ring via the per-rotation self-tile flag — masked only
-    on rotation 0 (own shard), unmasked on disjoint rotations; the
-    allgather path rolls its own shard to the front so the square mask
-    applies.  Gate at each tier's documented accuracy."""
-    n, steps = 1024, 2
-    state, pos, vel, mass = make_state(n, seed=26)
-    cfg = SimConfig(n_bodies=n, impl=impl, block_i=8, block_j=128)
-    mesh = make_mesh()
-    out = run_steps_sharded(state, cfg, mesh, steps, impl=impl, comm=comm)
-    rpos, rvel, racc = oracle_run(pos, vel, mass, cfg.eps2, cfg.dt, steps)
-    if impl == "pallas_turbo":   # loose tier: gate p99 relative error
-        err = np.abs(np.asarray(out.acc) - racc) / (np.abs(racc) + 1e-30)
-        assert np.percentile(err, 99) < 5e-2
-        assert np.all(np.isfinite(np.asarray(out.pos)))
-    else:
-        assert_matches_oracle(np.asarray(out.pos), rpos, f"pos({impl})",
-                              abs_tol=1.0, max_frac_bad=2e-3)
-        assert_matches_oracle(np.asarray(out.acc), racc, f"acc({impl})",
-                              abs_tol=1e-4, max_frac_bad=2e-3)
-
-
-@pytest.mark.parametrize("p", [8, 5, 2, 1])
-def test_sym_ring_matches_oracle(p):
-    """The N3L ring (each unordered cross-shard pair computed ONCE, j-side
-    partials shipped home): exact tier vs the oracle.  p=8 exercises the
-    even-P antipodal one-sided step; p=5 the pure odd-P half sweep; p=2
-    antipodal-only; p=1 self-shard only."""
-    n, steps = 512, 3
-    state, pos, vel, mass = make_state(n, seed=27)
-    cfg = SimConfig(n_bodies=n, impl="pallas_sym", block_i=8, block_j=128,
-                    block_u=128)
-    mesh = make_mesh(p)
-    out = run_steps_sharded(state, cfg, mesh, steps, impl="pallas_sym",
-                            comm="ring")
+@pytest.mark.parametrize("comm", ["ring", "allgather"])
+@pytest.mark.parametrize("p", [2, 4, 8])
+def test_sharded_kernel_matches_oracle(p, comm, kernel_interpret):
+    """The tiled kernel as each device's local sweep (interpret mode on
+    the CPU), <= 128 bodies per device (conftest envelope)."""
+    n, steps = 64 * p, 2
+    state, pos, vel, mass = make_state(n, seed=23 + p)
+    cfg = SimConfig(n_bodies=n, impl="pallas", block_i=16, block_j=32)
+    out = run_steps_sharded(state, cfg, make_mesh(p), steps, impl="pallas",
+                            comm=comm)
     rpos, _, racc = oracle_run(pos, vel, mass, cfg.eps2, cfg.dt, steps)
-    assert_matches_oracle(np.asarray(out.pos), rpos, f"pos(sym-ring p={p})",
-                          abs_tol=1.0)
-    assert_matches_oracle(np.asarray(out.acc), racc, f"acc(sym-ring p={p})",
-                          abs_tol=1e-4)
+    assert_matches_oracle(np.asarray(out.pos), rpos,
+                          f"pos(kernel {comm} p={p})", abs_tol=1.0)
+    assert_matches_oracle(np.asarray(out.acc), racc,
+                          f"acc(kernel {comm} p={p})", abs_tol=1e-4)
 
 
-def test_sym_ring_matches_single_device():
-    """Sharded N3L result == single-device pair-symmetric result (same
-    physics; summation grouping differs only within the fp32 contract)."""
-    n, steps = 512, 5
+def test_sharded_kernel_matches_single_device(kernel_interpret):
+    """Sharded kernel ring == single-device kernel (same physics; the sum
+    grouping differs only within the fp32 contract)."""
+    n, steps = 256, 3
     state, *_ = make_state(n, seed=28)
-    cfg = SimConfig(n_bodies=n, impl="pallas_sym", block_i=8, block_j=128,
-                    block_u=128)
-    out_sharded = run_steps_sharded(state, cfg, make_mesh(), steps,
-                                    impl="pallas_sym", comm="ring")
-    out_single = run_steps(state, cfg, steps, impl="pallas_sym")
+    cfg = SimConfig(n_bodies=n, impl="pallas", block_i=16, block_j=32)
+    out_sharded = run_steps_sharded(state, cfg, make_mesh(4), steps,
+                                    impl="pallas", comm="ring")
+    out_single = run_steps(state, cfg, steps, impl="pallas")
     np.testing.assert_allclose(
         np.asarray(out_sharded.pos), np.asarray(out_single.pos),
         rtol=1e-4, atol=1.0)
-
-
-def test_sym_ring_turbo_tier():
-    """pallas_sym_turbo through the N3L ring: loose-tier gate."""
-    n, steps = 1024, 2
-    state, pos, vel, mass = make_state(n, seed=29)
-    cfg = SimConfig(n_bodies=n, impl="pallas_sym_turbo", block_i=8,
-                    block_j=128, block_u=128)
-    mesh = make_mesh()
-    out = run_steps_sharded(state, cfg, mesh, steps, impl="pallas_sym_turbo",
-                            comm="ring")
-    _, _, racc = oracle_run(pos, vel, mass, cfg.eps2, cfg.dt, steps)
-    err = np.abs(np.asarray(out.acc) - racc) / (np.abs(racc) + 1e-30)
-    assert np.percentile(err, 99) < 5e-2
-    assert np.all(np.isfinite(np.asarray(out.pos)))
-
-
-def test_sym_allgather_maps_to_rect_twin():
-    """pallas_sym with comm='allgather' still maps to its one-sided twin."""
-    n = 512
-    state, pos, vel, mass = make_state(n, seed=27)
-    cfg = SimConfig(n_bodies=n, impl="pallas_sym", block_i=8, block_j=128)
-    mesh = make_mesh()
-    out = run_steps_sharded(state, cfg, mesh, 2, impl="pallas_sym",
-                            comm="allgather")
-    rpos, _, _ = oracle_run(pos, vel, mass, cfg.eps2, cfg.dt, 2)
-    assert_matches_oracle(np.asarray(out.pos), rpos, "pos(sym-ag)",
-                          abs_tol=1.0)
 
 
 def test_shard_state_placement():
@@ -222,19 +148,19 @@ def test_bad_comm_raises():
         run_steps_sharded(state, cfg, mesh, 1, comm="bogus")
 
 
-def test_prime_kdk_sharded_matches_single_device():
-    """Mesh KDK priming (review r4): prime_kdk_sharded seeds a(x_0)
-    WITHOUT gathering the state to one device, and its acc matches the
-    single-device primer within the sharded association tolerance for
-    both sym (N3L ring) and one-sided force paths."""
+def test_prime_kdk_sharded_matches_single_device(kernel_interpret):
+    """Mesh KDK priming: prime_kdk_sharded seeds a(x_0) WITHOUT gathering
+    the state to one device, and its acc matches the single-device primer
+    within the sharded association tolerance for the XLA and kernel
+    sweeps."""
     from nbody_tpu.ops.step import prime_kdk
     from nbody_tpu.parallel.ring import prime_kdk_sharded
     n = 512
     state, *_ = make_state(n, seed=27)
     mesh = make_mesh()
-    for impl in ("xla", "pallas_sym", "pallas_sym2"):
-        cfg = SimConfig(n_bodies=n, impl=impl, chunk=64, block_i=8,
-                        block_j=128, block_u=128, integrator="kdk")
+    for impl in ("xla", "pallas"):
+        cfg = SimConfig(n_bodies=n, impl=impl, chunk=64, block_i=16,
+                        block_j=32, integrator="kdk")
         single = prime_kdk(state, cfg, impl=impl)
         sharded = prime_kdk_sharded(state, cfg, mesh, impl=impl)
         # Association differs (per-shard ring partials vs one fused
@@ -250,7 +176,7 @@ def test_prime_kdk_sharded_matches_single_device():
 def test_simulation_mesh_kdk_primes_on_mesh(monkeypatch):
     """Simulation(mesh=...) with a KDK-composed integrator must never
     call the single-device primer (it would gather the born-sharded
-    state and run a one-chip N^2 eval; review r4)."""
+    state and run a one-device N^2 eval)."""
     import nbody_tpu.models.simulation as simmod
     from nbody_tpu.models.simulation import Simulation
 
@@ -270,24 +196,10 @@ def test_simulation_mesh_kdk_primes_on_mesh(monkeypatch):
                           "pos(mesh yoshida4)", abs_tol=1.0)
 
 
-def test_rdma_auto_impl_resolves_to_sym():
-    """comm='rdma' with impl=None/'auto' resolves to the sym2 exact tier
-    instead of rejecting the off-TPU local default (review r4)."""
-    n = 256
-    state, pos, vel, mass = make_state(n, seed=29)
-    cfg = SimConfig(n_bodies=n, block_i=8, block_j=128, block_u=128)
-    mesh = make_mesh(4)
-    out = run_steps_sharded(state, cfg, mesh, 2, comm="rdma")  # impl=None
-    rpos, _, _ = oracle_run(pos, vel, mass, cfg.eps2, cfg.dt, 2)
-    assert_matches_oracle(np.asarray(out.pos), rpos, "pos(rdma auto)",
-                          abs_tol=1.0)
-
-
 def test_sharded_chunk_programs_cached():
     """run_steps_sharded / run_trajectory_frames_sharded must reuse ONE
     jitted program per (mesh, cfg, n_steps, impl, comm) — a fresh jit
-    wrapper per chunk would retrace + re-pay relay-side executable
-    loading at every chunk boundary (review r4)."""
+    wrapper per chunk would retrace at every chunk boundary."""
     from nbody_tpu.parallel.ring import (_sharded_frames_program,
                                          _sharded_run_program,
                                          run_trajectory_frames_sharded)
@@ -310,30 +222,3 @@ def test_sharded_chunk_programs_cached():
                                           view=(200000.0, 0, 0))
     assert _sharded_frames_program.cache_info().hits > h1
     assert not np.array_equal(np.asarray(f1), np.asarray(f2))
-
-
-def test_simulation_rdma_auto_reroutes_incompatible_resolution():
-    """comm='rdma' + impl='auto' where resolve_impl lands on a non-rdma
-    backend (xla_nxn off-TPU at small N) re-resolves to the sym2 exact
-    tier instead of erroring on an impl the user never chose (review
-    r4)."""
-    from nbody_tpu.models.simulation import Simulation
-    n = 256
-    state, pos, vel, mass = make_state(n, seed=31)
-    cfg = SimConfig(n_bodies=n, block_i=8, block_j=128, block_u=128)
-    sim = Simulation(cfg, state=state, mesh=make_mesh(4), comm="rdma")
-    assert sim.impl == "pallas_sym2"
-    res = sim.run(n_steps=2, log_every=0)
-    rpos, _, _ = oracle_run(pos, vel, mass, cfg.eps2, cfg.dt, 2)
-    assert_matches_oracle(np.asarray(res.state.pos), rpos,
-                          "pos(rdma auto sim)", abs_tol=1.0)
-
-
-def test_simulation_rdma_f64_names_the_dtype():
-    """comm='rdma' with a non-f32 dtype is a genuine incompatibility (the
-    in-kernel ring is f32 Pallas): the error must blame the dtype, not
-    whatever impl auto resolution produced (review r4)."""
-    from nbody_tpu.models.simulation import Simulation
-    cfg = SimConfig(n_bodies=256, dtype="float64")
-    with pytest.raises(ValueError, match="float32"):
-        Simulation(cfg, mesh=make_mesh(4), comm="rdma")

@@ -176,7 +176,7 @@ def test_simulation_batched_viz_counts_frames(tmp_path):
 
 
 def test_mesh_inloop_frames_match_gathered_render():
-    """VERDICT r3 #6: the mesh in-loop frame path (render local shards,
+    """The mesh in-loop frame path (render local shards,
     pmax-combine) is PIXEL-IDENTICAL to rendering the gathered sharded
     state at every frame boundary — the max-combine across chips is the
     same brightest-point rule the splat uses per pixel."""
@@ -240,7 +240,7 @@ def test_frame_streamer(tmp_path):
 def test_viewer_run_control_stops_run(tmp_path):
     """Browser /stop ends a run cleanly at the next chunk boundary,
     checkpointing first — the reference's close-window-to-stop semantics
-    (main.cpp:118) without killing the process (VERDICT r2 #7)."""
+    (main.cpp:118) without killing the process."""
     import urllib.request
     from nbody_tpu import SimConfig
     from nbody_tpu.models.simulation import Simulation
@@ -305,11 +305,6 @@ def test_render_pan_zoom_camera():
     # Zoom in (smaller max_view) without panning: the body clips out.
     zoomed = np.asarray(render_weights(pos, mass, 1e5, 1e9, 25.0, w, h))
     assert not zoomed.any()
-    # Flat rasterizer: identical pixels under the same camera.
-    from nbody_tpu.viz.raster import render_weights_flat
-    flat = np.asarray(render_weights_flat(
-        pos.reshape(-1), mass, 1e5, 1e9, 100.0, w, h, 2, 8, 60.0, -30.0))
-    np.testing.assert_array_equal(flat, panned)
 
 
 def test_viewer_view_endpoint():
@@ -387,63 +382,41 @@ class _Collect:
         pass
 
 
-def test_multiprog_inloop_frames_match_fused():
-    """VERDICT r4 missing #1: a bounded-program run streams frames at the
-    viz cadence as standalone O(N) render programs — pixel-identical to
-    the fused batched path (the chunked step is bit-equal to fused, and
-    packed render + host colorize is pixel-equal to on-device RGB)."""
+def _last_frame_of_state(sim):
+    from nbody_tpu.viz.raster import colorize, render_weights
+    cfg = sim.cfg
+    return colorize(render_weights(
+        jnp.asarray(np.asarray(sim.state.pos)),
+        jnp.asarray(np.asarray(sim.state.mass)), cfg.min_mass,
+        cfg.max_mass, cfg.max_view, cfg.viz_width, cfg.viz_height))
+
+
+def test_kernel_inloop_frames_at_cadence(kernel_interpret):
+    """A run through the tiled kernel streams frames at the viz cadence,
+    rendered on device inside the compiled chunk; the last one is the
+    final state's picture."""
     from nbody_tpu import SimConfig
     from nbody_tpu.models.simulation import Simulation
-    kw = dict(n_bodies=256, impl="pallas_sym", block_i=8, block_j=128,
-              block_u=128, viz_every=2, viz_width=64, viz_height=48)
-    fused, mp = _Collect(), _Collect()
-    sim_f = Simulation(SimConfig(**kw))
-    assert not sim_f._use_multiprog
-    sim_f.run(n_steps=6, log_every=0, frame_streamer=fused)
-    sim_m = Simulation(SimConfig(prog_cap=2e4, **kw))
-    assert sim_m._use_multiprog
-    sim_m.run(n_steps=6, log_every=0, frame_streamer=mp)
-    assert sorted(mp.frames) == sorted(fused.frames) == [0, 1, 2]
-    for k in fused.frames:
-        np.testing.assert_array_equal(mp.frames[k], fused.frames[k])
+    cfg = SimConfig(n_bodies=256, impl="pallas", block_i=16, block_j=32,
+                    viz_every=2, viz_width=64, viz_height=48)
+    sink = _Collect()
+    sim = Simulation(cfg)
+    sim.run(n_steps=6, log_every=0, frame_streamer=sink)
+    assert sorted(sink.frames) == [0, 1, 2]
+    np.testing.assert_array_equal(sink.frames[2], _last_frame_of_state(sim))
 
 
-def test_mesh_multiprog_inloop_frames_match_fused_mesh():
-    """The mesh twin: bounded mesh dispatch renders per-chip + pmax
-    (render_weights_sharded) at the viz cadence, pixel-identical to the
-    fused mesh batched path (tiny geometry — conftest envelope)."""
+def test_mesh_inloop_frames_at_cadence():
+    """The mesh twin: each device renders its shard and the maps
+    max-combine across the mesh (pmax), pixel-identical to rendering the
+    gathered state."""
     from nbody_tpu import SimConfig
     from nbody_tpu.models.simulation import Simulation
     from nbody_tpu.parallel.mesh import make_mesh
-    mesh = make_mesh(4)
-    kw = dict(n_bodies=256, impl="pallas_sym", block_i=8, block_j=128,
-              block_u=128, viz_every=2, viz_width=64, viz_height=48)
-    fused, mp = _Collect(), _Collect()
-    sim_f = Simulation(SimConfig(**kw), mesh=mesh)
-    assert not sim_f._use_multiprog
-    sim_f.run(n_steps=4, log_every=0, frame_streamer=fused)
-    sim_m = Simulation(SimConfig(prog_cap=1e4, **kw), mesh=mesh)
-    assert sim_m._use_multiprog
-    sim_m.run(n_steps=4, log_every=0, frame_streamer=mp)
-    assert sorted(mp.frames) == sorted(fused.frames) == [0, 1]
-    for k in fused.frames:
-        np.testing.assert_array_equal(mp.frames[k], fused.frames[k])
-
-
-def test_flat_inloop_frames_at_cadence():
-    """Flat runs stream at viz_every cadence (flat no longer sheds to a
-    weaker viz mode; the banner must not claim it does)."""
-    from nbody_tpu import SimConfig
-    from nbody_tpu.io.logger import RunLogger
-    from nbody_tpu.models.simulation import Simulation
-    import io
-    cfg = SimConfig(n_bodies=256, impl="pallas_sym", block_i=8,
-                    block_u=128, prog_cap=2e4, flat_state=True,
-                    viz_every=2, viz_width=64, viz_height=48)
+    cfg = SimConfig(n_bodies=256, impl="xla", chunk=64, viz_every=2,
+                    viz_width=64, viz_height=48)
     sink = _Collect()
-    buf = io.StringIO()
-    sim = Simulation(cfg, logger=RunLogger(stream=buf))
-    assert sim._flat and sim._use_multiprog
-    sim.run(n_steps=6, log_every=0, frame_streamer=sink)
-    assert sorted(sink.frames) == [0, 1, 2]
-    assert "boundary-frame viz" not in buf.getvalue()
+    sim = Simulation(cfg, mesh=make_mesh(4))
+    sim.run(n_steps=4, log_every=0, frame_streamer=sink)
+    assert sorted(sink.frames) == [0, 1]
+    np.testing.assert_array_equal(sink.frames[1], _last_frame_of_state(sim))
