@@ -15,8 +15,10 @@ Phases (any failure raises, and the script exits non-zero):
    (padding), and at N=1,048,576 on 1,024 sampled rows against all j; all
    rows at 1,048,576 against XLA's chunked path.  Gate: no component
    outside 1% (``relative_mismatch``) against the oracle, for the kernel
-   and for the chunked path; where the two paths part by more than 1% on
-   the full sweep, the oracle decides each such row.
+   and for the chunked path.  On the full 1M sweep the two paths may part
+   by more than 1% on at most 64 rows (near-cancelling components), and
+   the oracle holds the kernel on each such row to 1% or to the
+   probabilistic float32 error of its summation order.
 3. main path through ``nbody_tpu.cli.main``: ``run`` at N=1,048,576 with
    energy, ``run`` at the reference's interactive design point (N=8,192, a
    frame every step), and ``validate`` at N=8,192 (10-step strict gate).
@@ -51,6 +53,9 @@ HERE = Path(__file__).resolve().parent
 EPS2 = 0.002
 BIG_N = 1_048_576
 REF_N = 8192
+# Rows of the N=1M sweep on which the kernel and XLA's chunked path may part
+# by more than 1% (near-cancelling components; 20 seen on an H100).
+SPLIT_CAP = 64
 
 PRECISION = ("precision: float32 state; the kernel's float32 pair terms and "
              "plain float32 sums (no matrix units); XLA's chunked path sums "
@@ -161,24 +166,27 @@ def phase_kernel_gate():
         print(f"{name} vs f64 oracle N={BIG_N} (1024 rows): mismatch={bad} "
               f"p99={p99:.3e}")
         gate(bad == 0.0, f"{name} N={BIG_N} sampled-row 1% mismatch is 0")
-    # All rows, the two float32 paths against each other.  A component whose
-    # terms nearly cancel (a force almost along another axis) carries
-    # rounding of order u * sum_j |a_ij| in both sums, which can exceed 1% of
-    # what is left.  Where the two paths part by more than 1%, the f64
-    # oracle decides: the kernel must be within 1% of it, or within the
-    # float32 error bound of the kernel's summation order (each of block_j
-    # lanes sums N/block_j terms, then a tree over the lanes, plus a few
-    # roundings per term): (N/block_j + log2(block_j) + 8) * u * sum_j |a_ij|.
+    # All rows, the two float32 paths against each other.  This replaces a
+    # strict "no component outside 1%" gate between them, which two float32
+    # summation orders cannot meet at this N: a component whose terms
+    # nearly cancel (a force almost along another axis) carries rounding of
+    # order u * sum_j |a_ij| in both sums, which can exceed 1% of what is
+    # left.  So at most SPLIT_CAP rows may part by more than 1%, and the
+    # f64 oracle decides each: the kernel must be within 1% of it, or within
+    # the probabilistic float32 error of its summation order (each of
+    # block_j lanes sums N/block_j terms in sequence, then a tree over the
+    # lanes): sqrt(N/block_j + log2(block_j)) * u * sum_j |a_ij|.
+    from nbody_tpu.config import DEFAULT_BLOCK_J
     from nbody_tpu.oracle.numpy_oracle import relative_mismatch
-    from nbody_tpu.ops.forces_pallas import DEFAULT_BLOCK_J
     raw, p99 = mismatch(acc_k, acc_c)
     print(f"kernel vs xla chunked N={BIG_N} (all rows): mismatch={raw} "
           f"p99={p99:.3e}", flush=True)
     split = np.flatnonzero(relative_mismatch(acc_k, acc_c, 0.01, 1e-6)
                            .any(axis=1))
-    gate(split.size <= 1024,
-         f"{split.size} rows where the two float32 paths part by >1%")
-    gamma = ((BIG_N / DEFAULT_BLOCK_J + np.log2(DEFAULT_BLOCK_J) + 8)
+    gate(split.size <= SPLIT_CAP,
+         f"{split.size} rows (at most {SPLIT_CAP}) where the two float32 "
+         f"paths part by >1%")
+    gamma = (np.sqrt(BIG_N / DEFAULT_BLOCK_J + np.log2(DEFAULT_BLOCK_J))
              * 2.0 ** -24)
     for i in split:
         want, scale = oracle_row(pos, mass, int(i))

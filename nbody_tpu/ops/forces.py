@@ -11,6 +11,7 @@ from __future__ import annotations
 import jax
 
 from ..config import SimConfig
+from ..utils.device import kernel_available
 from .forces_xla import forces_chunked, forces_nxn
 
 # Full NxN materialization is O(N^2); cap where its ~(N^2 * 4B) buffers stay
@@ -24,12 +25,6 @@ _NXN_AUTO_MAX_N = 4096
 # an H100: it loses at N <= 2048, where too few programs fill the card, and
 # wins from 4096 up (PERF.md "Kernel against XLA").
 PALLAS_MIN_N = 4096
-
-
-def kernel_available() -> bool:
-    """True when the tiled Pallas kernel compiles for this process's
-    default device (the GPU, through Triton)."""
-    return jax.default_backend() == "gpu"
 
 
 def resolve_impl(cfg: SimConfig, sharded: bool = False) -> str:

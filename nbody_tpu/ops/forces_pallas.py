@@ -33,15 +33,14 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import triton as plgpu
 
+from ..config import DEFAULT_BLOCK_I, DEFAULT_BLOCK_J
 from ..models.state import round_up
+from ..utils.device import kernel_available
 
-# Chosen by a block sweep on an H100 (PERF.md "Kernel block sweep"): the
-# fastest shape at N=8,192, where a small block_i keeps enough programs in
-# flight for 132 SMs, and within a few per cent of the best at larger N.
-DEFAULT_BLOCK_I = 32
-DEFAULT_BLOCK_J = 64
-DEFAULT_NUM_WARPS = 8
-DEFAULT_NUM_STAGES = 3
+# Chosen with the default blocks (config.py) by a block sweep on an H100
+# (PERF.md "Kernel block sweep").
+NUM_WARPS = 8
+NUM_STAGES = 3
 
 
 def _force_kernel(pos_i_ref, pos_j_ref, ax_ref, ay_ref, az_ref, *, eps2,
@@ -68,10 +67,8 @@ def _force_kernel(pos_i_ref, pos_j_ref, ax_ref, ay_ref, az_ref, *, eps2,
 
 
 @functools.partial(
-    jax.jit, static_argnames=("eps2", "block_i", "block_j", "num_warps",
-                              "num_stages", "interpret"))
-def _sweep(soa_i, soa_j, eps2, block_i, block_j, num_warps, num_stages,
-           interpret):
+    jax.jit, static_argnames=("eps2", "block_i", "block_j", "interpret"))
+def _sweep(soa_i, soa_j, eps2, block_i, block_j, interpret):
     """(4, Ni_pad) i-bodies x (4, Nj_pad) j-bodies -> (Ni_pad, 3)."""
     ni_pad, nj_pad = soa_i.shape[1], soa_j.shape[1]
     kernel = functools.partial(
@@ -86,8 +83,8 @@ def _sweep(soa_i, soa_j, eps2, block_i, block_j, num_warps, num_stages,
         out_specs=[out_spec, out_spec, out_spec],
         out_shape=[jax.ShapeDtypeStruct((ni_pad,), jnp.float32)] * 3,
         backend="triton",
-        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
-                                             num_stages=num_stages),
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=NUM_STAGES),
         cost_estimate=pl.CostEstimate(
             flops=20 * ni_pad * nj_pad,
             bytes_accessed=(4 * ni_pad + 4 * nj_pad * (ni_pad // block_i)
@@ -113,7 +110,7 @@ def _check(pos, block_i, block_j, interpret):
     for name, b in (("block_i", block_i), ("block_j", block_j)):
         if b < 1 or b & (b - 1):
             raise ValueError(f"{name} must be a power of two, got {b}")
-    if not interpret and jax.default_backend() != "gpu":
+    if not interpret and not kernel_available():
         raise RuntimeError(
             f"the tiled force kernel compiles for the GPU only (backend is "
             f"{jax.default_backend()!r}); pass interpret=True to run it in "
@@ -123,22 +120,17 @@ def _check(pos, block_i, block_j, interpret):
 def forces_pallas(pos: jax.Array, mass: jax.Array, eps2: float,
                   block_i: int = DEFAULT_BLOCK_I,
                   block_j: int = DEFAULT_BLOCK_J,
-                  num_warps: int = DEFAULT_NUM_WARPS,
-                  num_stages: int = DEFAULT_NUM_STAGES,
                   interpret: bool = False) -> jax.Array:
     """Softened all-pairs accelerations via the tiled kernel.
     (N,3) f32, (N,) f32 -> (N,3) f32."""
     return rect_forces_pallas(pos, pos, mass, eps2, block_i=block_i,
-                              block_j=block_j, num_warps=num_warps,
-                              num_stages=num_stages, interpret=interpret)
+                              block_j=block_j, interpret=interpret)
 
 
 def rect_forces_pallas(pos_i: jax.Array, pos_j: jax.Array,
                        mass_j: jax.Array, eps2: float,
                        block_i: int = DEFAULT_BLOCK_I,
                        block_j: int = DEFAULT_BLOCK_J,
-                       num_warps: int = DEFAULT_NUM_WARPS,
-                       num_stages: int = DEFAULT_NUM_STAGES,
                        interpret: bool = False) -> jax.Array:
     """Forces of body set j on body set i — the rectangular block of the
     interaction matrix, and the local sweep of each shard in the mesh ring
@@ -149,6 +141,6 @@ def rect_forces_pallas(pos_i: jax.Array, pos_j: jax.Array,
     ni, nj = pos_i.shape[0], pos_j.shape[0]
     soa_i = _soa(pos_i, jnp.zeros((ni,), jnp.float32), round_up(ni, block_i))
     soa_j = _soa(pos_j, mass_j.astype(jnp.float32), round_up(nj, block_j))
-    acc = _sweep(soa_i, soa_j, float(eps2), block_i, block_j, num_warps,
-                 num_stages, bool(interpret))
+    acc = _sweep(soa_i, soa_j, float(eps2), block_i, block_j,
+                 bool(interpret))
     return acc[:ni]

@@ -7,6 +7,12 @@ from __future__ import annotations
 import jax
 
 
+def kernel_available() -> bool:
+    """True when the tiled Pallas kernel compiles for this process's
+    default device (the GPU, through Triton)."""
+    return jax.default_backend() == "gpu"
+
+
 def device_info() -> "list[dict]":
     infos = []
     for d in jax.devices():

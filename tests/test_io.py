@@ -6,6 +6,7 @@ import os
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from nbody_tpu import SimConfig, SimState, run_steps
 from nbody_tpu.io.checkpoint import (
@@ -199,3 +200,61 @@ def test_checkpoint_from_older_config_layout_loads(tmp_path):
     assert sim.step_count == 9 and sim.cfg == cfg
     sim.run(n_steps=2, log_every=0)
     assert sim.step_count == 11
+
+
+def test_trajectory_writer_stream_roundtrip(tmp_path):
+    """Streamed trajectory == the snapshots appended, loaded lazily."""
+    from nbody_tpu.io.checkpoint import (TrajectoryWriter, LazySnapshots,
+                                         load_trajectory)
+    path = str(tmp_path / "traj.npz")
+    rng = np.random.default_rng(0)
+    snaps = rng.normal(size=(5, 17, 3)).astype(np.float32)
+    mass = rng.uniform(1, 2, 17).astype(np.float32)
+    with TrajectoryWriter(path, snap_every=4, mass=mass) as tw:
+        for s in snaps:
+            tw.append(s)
+    got, got_mass, snap_every = load_trajectory(path)
+    assert isinstance(got, LazySnapshots)
+    assert snap_every == 4 and len(got) == 5
+    assert got.shape == (5, 17, 3)
+    np.testing.assert_array_equal(got_mass, mass)
+    for k in range(5):
+        np.testing.assert_array_equal(got[k], snaps[k])
+    np.testing.assert_array_equal(got[-1], snaps[-1])
+    with pytest.raises(IndexError):
+        got[5]
+
+
+def test_trajectory_writer_discards_on_exception(tmp_path):
+    """A failure mid-stream must NOT commit over a previous complete
+    trajectory (atomic tmp+rename semantics)."""
+    from nbody_tpu.io.checkpoint import TrajectoryWriter, load_trajectory
+    path = str(tmp_path / "traj.npz")
+    full = np.arange(2 * 6 * 3, dtype=np.float32).reshape(2, 6, 3)
+    with TrajectoryWriter(path, snap_every=1) as tw:
+        for s in full:
+            tw.append(s)
+    with pytest.raises(RuntimeError, match="mid-run"):
+        with TrajectoryWriter(path, snap_every=1) as tw:
+            tw.append(full[0])
+            raise RuntimeError("mid-run device error")
+    # Destination still holds BOTH snapshots of the committed run, and
+    # the tmp file is gone.
+    got, _, _ = load_trajectory(path)
+    assert len(got) == 2
+    np.testing.assert_array_equal(got[1], full[1])
+    assert not [f for f in os.listdir(tmp_path) if "tmp" in f]
+
+
+def test_load_trajectory_snap_count_fallback(tmp_path):
+    """Without an n_snaps entry the fallback count must not mistake the
+    'snap_every' metadata entry for a snapshot."""
+    from nbody_tpu.io.checkpoint import load_trajectory
+    path = str(tmp_path / "traj.npz")
+    np.savez(path,
+             snap_000000=np.zeros((4, 3), np.float32),
+             snap_000001=np.ones((4, 3), np.float32),
+             snap_every=np.asarray(2, dtype=np.int64))
+    got, _, snap_every = load_trajectory(path)
+    assert len(got) == 2 and snap_every == 2
+    np.testing.assert_array_equal(got[1], np.ones((4, 3), np.float32))

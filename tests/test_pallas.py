@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nbody_tpu.ops.forces_pallas import (DEFAULT_BLOCK_I, DEFAULT_BLOCK_J,
-                                         forces_pallas, rect_forces_pallas)
+from nbody_tpu.config import DEFAULT_BLOCK_I, DEFAULT_BLOCK_J
+from nbody_tpu.ops.forces_pallas import forces_pallas, rect_forces_pallas
 from nbody_tpu.ops.forces_xla import forces_chunked, forces_nxn
 from nbody_tpu.oracle.numpy_oracle import (assert_matches_oracle,
                                            oracle_forces, relative_mismatch)
